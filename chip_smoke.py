@@ -5,21 +5,34 @@
 Phases, each of which raises (and the script exits nonzero) on failure:
 
 1. the card's name and power limit, the torch and CUDA versions;
-2. build the SDCA kernel from ``src/repro_torch/kernels/sdca/csrc`` with
-   nvcc (one process per source, started together);
-3. hold the kernel against its plain PyTorch version on the card at the
-   main path's shapes (Vehicle Sensor: gram mode; Human Activity: carry
-   mode), a forced gram mode, duplicate-heavy streams, and budget 0 and
-   mask 0 (exact no-ops);
-4. the main path: full-size MOCHA experiments through
-   ``repro_torch.api.Experiment.run`` with ``engine="kernel"``, the launch
+2. build the three kernels (SDCA, flash attention, decode attention) from
+   ``src/repro_torch/kernels/*/csrc`` with nvcc (one process per source,
+   started together);
+3. hold each kernel against its plain PyTorch version on the card: SDCA at
+   the MOCHA main path's shapes (Vehicle Sensor: gram mode; Human
+   Activity: carry mode), a forced gram mode, duplicate-heavy streams, and
+   budget 0 and mask 0 (exact no-ops); flash and decode at the cases of
+   tests/test_kernels.py, a ragged S and T, and SmolLM-360M's shapes, in
+   f32 and bf16, and decode's slots past lengths (bitwise no influence);
+4. the MOCHA main path: full-size experiments through
+   ``repro_torch.api.Experiment.run`` with ``engine="kernel"``, every launch
    counter set to 0 just before each and read just after, then the same
    experiments with ``engine="local"`` (the plain solver) on the card, and
    a small problem held against a CPU run;
-5. time the kernel (CUDA events over many launches), its plain version and
-   the wall time per round of both engines;
-6. profile three kernel-engine rounds (``torch.profiler``): device busy
-   share and the kernels that take the device's time.
+5. the LM main path: SmolLM-360M at full width (random weights from seed
+   0) through ``repro_torch.serve.Engine.generate``, batch 8, prompt 1024,
+   32 new tokens, in f32 and bf16, through the kernels (counters set to 0
+   just before each generate and read just after: 32 flash and 992 decode
+   launches) and through the plain versions on the card, logits and greedy
+   tokens compared (the plain route swaps the plain versions into
+   ``repro_torch.models.layers`` for the comparison); a reduced SmolLM on
+   the card against the CPU;
+6. time the SDCA kernel (CUDA events over many launches), its plain
+   version and the wall time per round of both engines; profile three
+   kernel-engine rounds (``torch.profiler``);
+7. time flash and decode at SmolLM-360M's shapes (kernel, plain version,
+   ``scaled_dot_product_attention``) beside their bounds; prefill ms and
+   decode ms per token of both routes; profile a prefill and decode steps.
 
 It prints the kernel table as JSON, the card line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Exits nonzero,
@@ -27,6 +40,7 @@ printing no result, where CUDA is absent or the package is not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -117,12 +131,11 @@ def check_kernel(label, case, tol):
 
 
 def phase_build():
-    from repro_torch.kernels.sdca import build
+    from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.build()
-    build.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s, nvcc "
-          f"{' '.join(build.NVCC_FLAGS)}")
+    print(f"build: {time.perf_counter() - t0:.2f} s for "
+          f"{', '.join(build.SOURCES)}, nvcc {' '.join(build.NVCC_FLAGS)}")
     print(build.LAST_BUILD.get("log", "").strip(), flush=True)
 
 
@@ -189,15 +202,14 @@ def phase_main_path():
     """The main path: full-size experiments, kernel engine then local."""
     from repro_torch.core import Clustered, MeanRegularized, per_task_error
     from repro_torch.data.synthetic import HUMAN_ACTIVITY, VEHICLE_SENSOR
-    from repro_torch.kernels import sdca as K
     cases = [("vehicle_sensor", VEHICLE_SENSOR, Clustered(lam=1.0, k=3), 5),
              ("human_activity", HUMAN_ACTIVITY, MeanRegularized(), 0)]
     out = {}
     for label, spec, reg, every in cases:
         exp_k, test = _experiment(spec, reg, "kernel", every)
-        K.reset_counts()
+        reset_all_counts()
         rep_k, wall_k = _run_timed(exp_k)
-        launches = K.COUNTS["sdca_local_solve"]
+        launches = read_counts()["sdca_local_solve"]
         if launches != ROUNDS:
             raise AssertionError(f"{label}: the kernel ran {launches} times "
                                  f"in {ROUNDS} rounds")
@@ -350,6 +362,449 @@ def phase_profile(main_runs):
               for e in top), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# LM serving: the flash and decode attention kernels
+# ---------------------------------------------------------------------------
+
+#: kernel vs plain version, element by element: |out - plain| <=
+#: ATTN_RTOL * |plain| + ATTN_ATOL * max(1, max |plain|).  Both compute in
+#: f32 from the same inputs and sum in another order (the ATTN_ATOL term);
+#: in bf16 each then rounds its output once, which moves an element by at
+#: most 2^-7 of itself (the ATTN_RTOL term)
+ATTN_ATOL = 2e-5
+ATTN_RTOL = {torch.float32: 0.0, torch.bfloat16: 1e-2}
+#: the main path: SmolLM-360M at full width, random weights from seed 0
+ARCH, SEED = "smollm-360m", 0
+BATCH, PROMPT, NEW = 8, 1024, 32
+MAX_LEN = PROMPT + NEW + 8          # as launch/serve.py sizes the cache
+#: kernel route vs plain route on the card, logits relative to
+#: max(1, max |plain logit|): 32 layers of the per-layer rounding above
+LOGIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+PEAK_BF16 = 989e12                  # tensor-core dense bf16, FLOP/s
+PEAK_OPS = {torch.float32: PEAK_FP32, torch.bfloat16: PEAK_BF16}
+DEV = "cuda"
+
+
+def reset_all_counts():
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import sdca as K
+    for mod in (K, FA, DA):
+        mod.reset_counts()
+
+
+def read_counts():
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import sdca as K
+    return {**K.COUNTS, **FA.COUNTS, **DA.COUNTS}
+
+
+def _normal(shape, dtype, seed):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=DEV).to(dtype)
+
+
+def flash_case(b, s, h, hkv, d, dtype=torch.float32, causal=True,
+               window=None, seed=0):
+    return dict(q=_normal((b, s, h, d), dtype, seed),
+                k=_normal((b, s, hkv, d), dtype, seed + 1),
+                v=_normal((b, s, hkv, d), dtype, seed + 2),
+                causal=causal, window=window)
+
+
+def decode_case(b, t, h, hkv, d, lengths, dtype=torch.float32, seed=0):
+    return dict(q=_normal((b, 1, h, d), dtype, seed),
+                k=_normal((b, t, hkv, d), dtype, seed + 1),
+                v=_normal((b, t, hkv, d), dtype, seed + 2),
+                lengths=torch.tensor(lengths, dtype=torch.int32,
+                                     device=DEV))
+
+
+def _attn_plain(name, case):
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import attention_ref
+    if name == "flash":
+        return attention_ref(**case)
+    return decode_attention_ref(case["q"][:, 0], case["k"], case["v"],
+                                case["lengths"])[:, None]
+
+
+def _attn_kernel(name, case):
+    from repro_torch.kernels.decode_attention import decode_mha
+    from repro_torch.kernels.flash_attention import flash_mha
+    return flash_mha(**case) if name == "flash" else decode_mha(**case)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The plain versions in place of the kernels in the model's layers, for
+    the route comparison only (the port itself never falls back)."""
+    from repro_torch.models import layers
+    saved = layers.flash_mha, layers.decode_mha
+
+    def flash(q, k, v, causal=True, window=None):
+        return _attn_plain("flash", dict(q=q, k=k, v=v, causal=causal,
+                                         window=window))
+
+    def decode(q, k, v, lengths):
+        return _attn_plain("decode", dict(q=q, k=k, v=v, lengths=lengths))
+
+    layers.flash_mha, layers.decode_mha = flash, decode
+    try:
+        yield
+    finally:
+        layers.flash_mha, layers.decode_mha = saved
+
+
+def _route(name):
+    return plain_attention() if name == "plain" else contextlib.nullcontext()
+
+
+def check_attention(name, label, case):
+    out = _attn_kernel(name, case)
+    ref = _attn_plain(name, case)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name} kernel output not finite: {label}")
+    diff = (out.float() - ref.float()).abs()
+    rtol = ATTN_RTOL[ref.dtype]
+    scale = max(1.0, float(ref.float().abs().max()))
+    tol = rtol * ref.float().abs() + ATTN_ATOL * scale
+    err, share = float(diff.max()), float((diff / tol).max())
+    ok = out.dtype == ref.dtype and share <= 1.0
+    print(f"{name} kernel vs plain [{label}]: max_abs_err={err:.3e}, largest "
+          f"share of the tolerance {rtol:g} x |plain| + {ATTN_ATOL:g} x "
+          f"{scale:.3g}: {share:.3f} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name} kernel disagrees with plain version: "
+                             f"{label}")
+    return err
+
+
+def phase_attention_kernels():
+    """Flash and decode against their plain versions on the card: the cases
+    of tests/test_kernels.py, a ragged S and T, and the main path's shapes
+    (SmolLM-360M: H 15, Hkv 5, D 64; B 8, S 1024, T 1064)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {(name, dt): 0.0 for name in ("flash", "decode")
+            for dt in (f32, bf16)}
+
+    def run(name, label, case):
+        key = (name, case["q"].dtype)
+        errs[key] = max(errs[key], check_attention(name, label, case))
+
+    for b, h, s, d in ((1, 1, 128, 32), (2, 3, 256, 64), (1, 2, 512, 128),
+                       (1, 1, 128, 256)):
+        run("flash", f"causal b{b} h{h} s{s} d{d}",
+            flash_case(b, s, h, h, d))
+    for w in (32, 64, 128):
+        run("flash", f"window {w}", flash_case(1, 256, 2, 2, 64, window=w))
+    run("flash", "non-causal", flash_case(1, 128, 1, 1, 64, causal=False))
+    run("flash", "bf16", flash_case(1, 128, 2, 2, 64, bf16))
+    run("flash", "GQA 4/2", flash_case(1, 128, 4, 2, 64))
+    run("flash", "ragged S 1000, GQA 6/2, d128, bf16",
+        flash_case(1, 1000, 6, 2, 128, bf16))
+    run("flash", "ragged S 77, non-causal window 16",
+        flash_case(1, 77, 2, 1, 64, causal=False, window=16))
+    for dt in (f32, bf16):
+        run("flash", f"main path B8 S1024 H15/5 D64 {str(dt)[6:]}",
+            flash_case(BATCH, PROMPT, 15, 5, 64, dt))
+
+    rng = np.random.default_rng(0)
+    for b, h, t, d in ((2, 2, 256, 64), (1, 4, 1024, 128), (3, 1, 512, 32),
+                       (1, 8, 2048, 64)):
+        run("decode", f"b{b} h{h} t{t} d{d}",
+            decode_case(b, t, h, h, d, rng.integers(1, t, b).tolist()))
+    run("decode", "bf16", decode_case(2, 256, 2, 2, 64, [200, 64], bf16))
+    run("decode", "GQA 4/2, lengths T and T/2",
+        decode_case(2, 256, 4, 2, 64, [256, 128]))
+    lens = [1, MAX_LEN, *rng.integers(PROMPT, MAX_LEN, BATCH - 2).tolist()]
+    for dt in (f32, bf16):
+        run("decode", f"main path B8 T1064 H15/5 D64 lengths 1..T "
+            f"{str(dt)[6:]}", decode_case(BATCH, MAX_LEN, 15, 5, 64, lens,
+                                          dt))
+    check_decode_masking(lens)
+    return errs
+
+
+def check_decode_masking(lens):
+    """Slots at or past lengths have exactly no influence on the kernel."""
+    case = decode_case(BATCH, MAX_LEN, 15, 5, 64, lens)
+    out1 = _attn_kernel("decode", case)
+    for i, n in enumerate(lens):
+        case["k"][i, n:] = 999.0
+        case["v"][i, n:] = float("nan")
+    out2 = _attn_kernel("decode", case)
+    torch.cuda.synchronize()
+    if not torch.equal(out1, out2):
+        raise AssertionError("decode kernel reads slots past lengths")
+    print("decode kernel [garbage past lengths]: output bitwise unchanged "
+          "ok", flush=True)
+
+
+def _lm_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    return build_model(get_config(ARCH), device=DEV, seed=SEED)
+
+
+def _prompt(vocab):
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.integers(0, vocab, (BATCH, PROMPT))).to(DEV)
+
+
+def _generate(model, tokens, dtype):
+    from repro_torch.serve import Engine, ServeConfig
+    eng = Engine(model, ServeConfig(max_len=MAX_LEN, max_new_tokens=NEW,
+                                    cache_dtype=dtype))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, logits = eng.generate({"tokens": tokens}, return_logits=True)
+    torch.cuda.synchronize()
+    return out, logits, time.perf_counter() - t0
+
+
+def phase_lm_main_path():
+    """The LM main path: SmolLM-360M at full width through Engine.generate,
+    the kernel route with the launch counters set to 0 just before each
+    generate and read just after, then the plain route on the card."""
+    model = _lm_model()
+    cfg = model.cfg
+    tokens = _prompt(cfg.vocab_size)
+    out = {"model": model, "tokens": tokens}
+    for dtype in (torch.float32, torch.bfloat16):
+        reset_all_counts()
+        tok_k, lg_k, wall_k = _generate(model, tokens, dtype)
+        counts = read_counts()
+        want = {"flash_attention": cfg.n_layers,
+                "decode_attention": cfg.n_layers * (NEW - 1),
+                "sdca_local_solve": 0}
+        if counts != want:
+            raise AssertionError(f"LM main path launches {counts}, expected "
+                                 f"{want}")
+        reset_all_counts()
+        with plain_attention():
+            tok_p, lg_p, wall_p = _generate(model, tokens, dtype)
+        if any(read_counts().values()):
+            raise AssertionError(f"the plain route launched a kernel: "
+                                 f"{read_counts()}")
+        if lg_k.shape != (BATCH, NEW, cfg.vocab_size) or \
+                not torch.isfinite(lg_k).all():
+            raise AssertionError(f"LM logits {tuple(lg_k.shape)} not finite "
+                                 f"or of the wrong shape")
+        scale = max(1.0, float(lg_p.float().abs().max()))
+        err_prefill = float((lg_k[:, 0] - lg_p[:, 0]).float().abs().max())
+        err_steps = float((lg_k[:, 1:] - lg_p[:, 1:]).float().abs().max())
+        tol = LOGIT_TOL[dtype] * scale
+        same = bool(np.array_equal(tok_k, tok_p))
+        name = str(dtype)[6:]
+        print(f"LM main path [{ARCH} {name}, B{BATCH} prompt {PROMPT} + "
+              f"{NEW} new, max_len {MAX_LEN}]: launches {counts}; logits "
+              f"kernel vs plain max abs err prefill {err_prefill:.3e}, "
+              f"decode steps {err_steps:.3e} (tolerance {LOGIT_TOL[dtype]:g}"
+              f" x {scale:.3g}); greedy tokens equal: {same}; wall "
+              f"generate kernel {wall_k:.3f} s, plain {wall_p:.3f} s; "
+              f"tokens[0] {tok_k[0].tolist()}", flush=True)
+        if max(err_prefill, err_steps) > tol:
+            raise AssertionError(f"LM logits of the kernel route differ from "
+                                 f"the plain route ({name})")
+        if dtype == torch.float32 and not same:
+            raise AssertionError("greedy tokens differ in float32")
+        out[name] = dict(counts=counts, err=max(err_prefill, err_steps))
+    return out
+
+
+def phase_lm_small_reference():
+    """A reduced SmolLM (GQA 4/2, head_dim 32) generates on the card through
+    the kernels and on the CPU through the plain versions, same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), n_heads=4,
+                              n_kv_heads=2)
+    cpu = build_model(cfg, device="cpu", seed=SEED)
+    card = build_model(cfg, device=DEV, seed=None)
+    card.load_state_dict(cpu.state_dict())
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 40)))
+    sc = ServeConfig(max_len=64, max_new_tokens=12)
+    t_card, l_card = Engine(card, sc).generate({"tokens": tok.to(DEV)},
+                                               return_logits=True)
+    t_cpu, l_cpu = Engine(cpu, sc).generate({"tokens": tok},
+                                            return_logits=True)
+    err = float((l_card.cpu() - l_cpu).abs().max())
+    scale = max(1.0, float(l_cpu.abs().max()))
+    ok = err <= LOGIT_TOL[torch.float32] * scale and np.array_equal(t_card,
+                                                                    t_cpu)
+    print(f"LM small reference [reduced {ARCH}, cuda kernels vs cpu plain]: "
+          f"logits max abs err {err:.3e}, tokens equal "
+          f"{np.array_equal(t_card, t_cpu)} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("LM on the card disagrees with the CPU")
+
+
+def attention_bound(name, case):
+    """Least time for one call: q, k, v, o (decode: live cache slots only)
+    read or written once over HBM bandwidth, or the live (query, key) pairs'
+    4 D flops over the dtype's peak, whichever is larger."""
+    q, k = case["q"], case["k"]
+    es = q.element_size()
+    if name == "flash":
+        b, s, h, d = q.shape
+        hkv = k.shape[2]
+        nbytes = es * (2 * b * s * h * d + 2 * b * s * hkv * d)
+        pairs = b * h * s * (s + 1) // 2       # causal, no window
+    else:
+        b, _, h, d = q.shape
+        hkv = k.shape[2]
+        live = int(case["lengths"].sum())
+        nbytes = es * (2 * b * h * d + 2 * live * hkv * d) + 4 * b
+        pairs = h * live
+    flops = 4 * d * pairs
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_OPS[q.dtype]
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops)
+
+
+def _sdpa(name, case):
+    import torch.nn.functional as F
+    q, k, v = (case[x].transpose(1, 2) for x in ("q", "k", "v"))
+    if name == "flash":
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    t = k.shape[2]
+    mask = (torch.arange(t, device=DEV)[None, :]
+            < case["lengths"][:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          enable_gqa=True)
+
+
+def _rotating_ms(fn, cases, reps):
+    """Per-call time over ``reps`` calls that cycle through ``cases`` (more
+    bytes than the 50 MB L2 holds, as a model's layers would find them)."""
+    for c in cases:
+        fn(c)
+    i = [0]
+
+    def step():
+        fn(cases[i[0] % len(cases)])
+        i[0] += 1
+    return _events_ms(step, reps)
+
+
+def phase_attention_timing(errs):
+    """Each attention kernel at the main path's shapes: kernel, plain
+    version and SDPA per call by CUDA events, and the bound."""
+    rows = {}
+    lens = np.random.default_rng(2).integers(PROMPT, MAX_LEN - 8,
+                                             BATCH).tolist()
+    for dtype in (torch.float32, torch.bfloat16):
+        name_dt = str(dtype)[6:]
+        for name, n_copies in (("flash", 2), ("decode", 5)):
+            make = ((lambda i: flash_case(BATCH, PROMPT, 15, 5, 64, dtype,
+                                          seed=10 * i)) if name == "flash"
+                    else (lambda i: decode_case(BATCH, MAX_LEN, 15, 5, 64,
+                                                lens, dtype, seed=10 * i)))
+            cases = [make(i) for i in range(n_copies)]
+            ms = _rotating_ms(lambda c: _attn_kernel(name, c), cases, 50)
+            plain_ms = _rotating_ms(lambda c: _attn_plain(name, c), cases, 5)
+            lib_ms = _rotating_ms(lambda c: _sdpa(name, c), cases, 50)
+            b = attention_bound(name, cases[0])
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       max_abs_err=errs[(name, dtype)], **b)
+            rows[(name, name_dt)] = row
+            print(f"timing [{name} {name_dt}, SmolLM-360M one layer"
+                  f"{', lengths ' + str(lens) if name == 'decode' else ''}]"
+                  f": kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms, "
+                  f"SDPA {lib_ms:.4f} ms, bound {b['bound_ms']:.5f} ms "
+                  f"({b['bound_by']}; {b['bytes'] / 1e6:.2f} MB, "
+                  f"{b['flops'] / 1e9:.3f} GFLOP) [{card_line()}]",
+                  flush=True)
+    return rows
+
+
+def _serve_times(model, tokens, dtype):
+    """Host-clock prefill time and decode time per token (greedy)."""
+    steps = NEW - 1
+    cache = model.init_cache(BATCH, MAX_LEN, dtype=dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": tokens}, cache, dtype=dtype)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = model.decode_step(
+            torch.argmax(logits, -1).to(torch.int32), cache, dtype=dtype)
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1) / steps
+
+
+def phase_serve_timing(lm):
+    """End to end: prefill ms and decode ms per token, kernel route and
+    plain route, in turns (kernel, plain, plain, kernel)."""
+    model, tokens = lm["model"], lm["tokens"]
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        got = {"kernel": [], "plain": []}
+        for route in ("kernel", "plain", "plain", "kernel"):
+            with _route(route):
+                got[route].append(_serve_times(model, tokens, dtype))
+        rows[name] = got
+        for route, runs in got.items():
+            print(f"serve timing [{ARCH} {name} {route} route, B{BATCH}]: "
+                  f"prefill {runs[0][0]:.2f} / {runs[1][0]:.2f} ms "
+                  f"({BATCH * PROMPT / runs[1][0] * 1e3:.0f} tokens/s), "
+                  f"decode {runs[0][1]:.3f} / {runs[1][1]:.3f} ms per step "
+                  f"({BATCH / runs[1][1] * 1e3:.0f} tokens/s) "
+                  f"[{card_line()}]", flush=True)
+    return rows
+
+
+def _device_ms(event) -> float:
+    return getattr(event, "self_device_time_total", 0) / 1e3
+
+
+def phase_lm_profile(lm):
+    """Where a prefill's and a decode step's time goes (torch.profiler,
+    kernel route, float32, after the runs above warmed it up)."""
+    from torch.profiler import ProfilerActivity, profile
+    model, tokens = lm["model"], lm["tokens"]
+    dtype = torch.float32
+    cache = model.init_cache(BATCH, MAX_LEN, dtype=dtype)
+    for label, steps in (("prefill", 1), ("decode", 8)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if label == "prefill":
+                logits, cache = model.prefill({"tokens": tokens}, cache,
+                                              dtype=dtype)
+            else:
+                for _ in range(steps):
+                    logits, cache = model.decode_step(
+                        torch.argmax(logits, -1).to(torch.int32), cache,
+                        dtype=dtype)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) is not None
+                  and "CUDA" in str(e.device_type)]
+        dev_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+        top = sorted(events, key=lambda e: -getattr(
+            e, "self_device_time_total", 0))[:6]
+        print(f"profile [{ARCH} f32 kernel route, {label} x{steps}]: wall "
+              f"{1e3 * wall / steps:.3f} ms per call, device busy "
+              f"{dev_us / 1e3 / steps:.3f} ms ({100 * dev_us / 1e6 / wall:.1f}"
+              f"% of wall), {sum(e.count for e in events) / steps:.0f} device "
+              f"kernels per call; top by device time: " + "; ".join(
+                  f"{e.key[:50]} x{e.count} {_device_ms(e) / steps:.3f} ms"
+                  for e in top), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -360,11 +815,17 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     phase_build()
     errs = phase_kernels()
+    attn_errs = phase_attention_kernels()
     main_runs = phase_main_path()
     launches = sum(r["launches"] for r in main_runs.values())
     phase_small_reference()
+    lm = phase_lm_main_path()
+    phase_lm_small_reference()
     shapes = phase_timing(main_runs, errs)
     phase_profile(main_runs)
+    attn = phase_attention_timing(attn_errs)
+    serve = phase_serve_timing(lm)
+    phase_lm_profile(lm)
     head = shapes["vehicle_sensor"]
     kernels = [dict(
         name="sdca_local_solve", route="cuda",
@@ -375,6 +836,26 @@ def main() -> int:
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=None,
         shapes=shapes)]
+    for name, counter, source, replaces in (
+            ("flash", "flash_attention",
+             "src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:27"),
+            ("decode", "decode_attention",
+             "src/repro_torch/kernels/decode_attention/csrc/"
+             "decode_attention.cu",
+             "src/repro/kernels/decode_attention/decode_attention.py:24")):
+        f32, bf16 = attn[(name, "float32")], attn[(name, "bfloat16")]
+        kernels.append(dict(
+            name=counter, route="cuda", source=source, replaces=replaces,
+            launches=sum(lm[dt]["counts"][counter]
+                         for dt in ("float32", "bfloat16")),
+            max_abs_err=max(f32["max_abs_err"], bf16["max_abs_err"]),
+            ms=f32["ms"], plain_ms=f32["plain_ms"],
+            bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
+            library_ms=f32["library_ms"],
+            shapes={"float32": f32, "bfloat16": bf16}))
+    print(json.dumps({"serve_ms": serve}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

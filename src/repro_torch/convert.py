@@ -9,11 +9,16 @@ through ``Exec(state0=...)`` and ``Method(omega0=...)``::
     state = state_from_numpy(res.state.alpha, res.state.v, device="cuda")
     omega = omega_from_numpy(res.omega, device="cuda")
 
+A JAX language model's parameter tree becomes the port's ``Model``::
+
+    model = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, params),
+                                 cfg, device="cuda")
+
 Arrays are copied as float32; the device is the card unless asked.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -45,3 +50,44 @@ def state_from_numpy(alpha, v, device: Optional[str] = None) -> DualState:
 def omega_from_numpy(omega, device: Optional[str] = None) -> torch.Tensor:
     """The (m, m) relationship matrix Omega."""
     return _tensor(omega, resolve_device(device))
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg,
+                         device: Optional[str] = None):
+    """The port's ``Model`` of ``cfg`` holding the JAX parameter tree
+    ``tree`` (numpy leaves).  Blocks may be stacked on a leading layer axis
+    (``scan_layers=True``) or a list of per-layer trees (``reduced()``)."""
+    from repro_torch.models.transformer import Model
+    model = Model(cfg, device=resolve_device(device), seed=None)
+    blocks = tree["blocks"]
+    if isinstance(blocks, Mapping):    # stacked: take layer i of each leaf
+        blocks = [_layer(blocks, i) for i in range(cfg.n_layers)]
+    if len(blocks) != cfg.n_layers:
+        raise ValueError(f"{len(blocks)} blocks for {cfg.n_layers} layers")
+    _copy_into(model.tree(), dict(tree, blocks=list(blocks)), "params")
+    return model
+
+
+def _layer(tree, i):
+    if isinstance(tree, Mapping):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+@torch.no_grad()
+def _copy_into(dst, src, path: str) -> None:
+    if isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise ValueError(f"{path}: keys {sorted(src)}, expected "
+                             f"{sorted(dst)}")
+        for k in dst:
+            _copy_into(dst[k], src[k], f"{path}.{k}")
+    elif isinstance(dst, list):
+        for i, (d, s) in enumerate(zip(dst, src)):
+            _copy_into(d, s, f"{path}[{i}]")
+    else:
+        a = np.array(src, dtype=np.float32)   # writable, for torch
+        if a.shape != tuple(dst.shape):
+            raise ValueError(f"{path}: shape {a.shape}, expected "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(a))

@@ -1,0 +1,89 @@
+"""Wrapper of the Hopper decode attention kernel
+(``csrc/decode_attention.cu``).
+
+``decode_attention`` is the counterpart of the JAX package's Pallas call
+(``repro/kernels/decode_attention/decode_attention.py``) in the cache layout
+of its GQA wrapper: q (B, H, D) and the cache k, v (B, T, Hkv, D), read in
+place up to each row's length.
+
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
+it runs the plain version (``ref.decode_attention_ref``).  Each launch adds
+one to ``COUNTS["decode_attention"]``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import check_operand, load
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention.flash_attention import (DTYPES,
+                                                                  HEAD_DIMS)
+
+#: launches of the kernel since the last ``reset_counts``
+COUNTS = {"decode_attention": 0}
+_ERR_SHARED_MEMORY = -2
+
+
+def reset_counts() -> None:
+    for name in COUNTS:
+        COUNTS[name] = 0
+
+
+def _bind(lib) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.decode_attention_fwd.argtypes = ([P] * 5 + [I] * 6 + [ctypes.c_float]
+                                         + [I, P])
+    lib.decode_attention_fwd.restype = I
+    lib.decode_attention_shared_bytes.argtypes = [I, I]
+    lib.decode_attention_shared_bytes.restype = ctypes.c_longlong
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """One query token per row: q (B, H, D) over the cache k, v
+    (B, T, Hkv, D), slots t < lengths[b] (int, (B,)); f32 or bf16 in, the
+    same dtype out.  Returns (B, H, D)."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError(f"q must be (B, H, D) and k (B, T, Hkv, D), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    b, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"{h} query heads do not share {hkv} kv heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not built; the kernel takes "
+                         f"{HEAD_DIMS}")
+    dtypes = (q.dtype,) if q.dtype in DTYPES else tuple(DTYPES)
+    check_operand("q", q, (b, h, d), dtypes, q.device)
+    for name, x in (("k", k), ("v", v)):
+        check_operand(name, x, (b, t, hkv, d), dtypes, q.device, align=16)
+    if lengths.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"lengths must be int32 or int64, got "
+                        f"{lengths.dtype}")
+    lengths = lengths.to(torch.int32).contiguous()
+    check_operand("lengths", lengths, (b,), (torch.int32,), q.device)
+    out = torch.empty_like(q)
+    dev = q.device
+    lib = load("decode_attention", _bind)
+    rc = lib.decode_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, t, h, hkv, d, DTYPES[q.dtype], 1.0 / d ** 0.5,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if rc == _ERR_SHARED_MEMORY:
+        raise ValueError(
+            f"decode kernel needs "
+            f"{lib.decode_attention_shared_bytes(h // hkv, d)} bytes of "
+            f"shared memory per block at {h // hkv} query heads per kv head, "
+            f"head_dim {d}; the device allows less")
+    if rc != 0:
+        raise RuntimeError(f"decode attention kernel launch failed: "
+                           f"error {rc}")
+    COUNTS["decode_attention"] += 1
+    return out

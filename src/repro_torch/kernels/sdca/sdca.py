@@ -12,11 +12,13 @@ it runs the plain version (``ref.sdca_ref``).  Each launch adds one to
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.subproblem import _solver_plan, chunk_idx_stream, row_norms
+from repro_torch.kernels.build import check_operand, load
 from repro_torch.kernels.sdca.ref import sdca_ref
 
 #: launches of the kernel since the last ``reset_counts``
@@ -32,16 +34,14 @@ def reset_counts() -> None:
         COUNTS[name] = 0
 
 
-def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, X on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _bind(lib) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.sdca_local_solve.argtypes = [P] * 11 + [I] * 7 + [P]
+    lib.sdca_local_solve.restype = I
+    lib.sdca_shared_bytes.argtypes = [I] * 4
+    lib.sdca_shared_bytes.restype = ctypes.c_longlong
+    lib.sdca_shared_limit.argtypes = [I]
+    lib.sdca_shared_limit.restype = ctypes.c_longlong
 
 
 def sdca_local_solve(X: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
@@ -74,12 +74,12 @@ def sdca_local_solve(X: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
                            ("mask", mask, (m, n)), ("alpha", alpha, (m, n)),
                            ("W", W, (m, d)), ("q_t", q_t, (m,)),
                            ("xnorm2", xnorm2, (m, n))):
-        _check(name, t, shape, f32, dev)
+        check_operand(name, t, shape, (f32,), dev)
     for name, t, shape in (("budgets", budgets, (m,)),
                            ("idx", idx, (m, max_steps))):
         if t.dtype not in (torch.int32, torch.int64):
             raise TypeError(f"{name} must be int32 or int64, got {t.dtype}")
-        _check(name, t, shape, t.dtype, dev)
+        check_operand(name, t, shape, (t.dtype,), dev)
     gram, C = _solver_plan(d, max_steps, gram)
     if gram and C > _GRAM_LANES:
         raise ValueError(f"gram mode takes chunks of at most {_GRAM_LANES}")
@@ -90,8 +90,7 @@ def sdca_local_solve(X: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     dalpha = torch.empty((m, n), dtype=f32, device=dev)
     u = torch.empty((m, d), dtype=f32, device=dev)
 
-    from repro_torch.kernels.sdca.build import load
-    lib = load()
+    lib = load("sdca", _bind)
     rc = lib.sdca_local_solve(
         X.data_ptr(), y.data_ptr(), mask.data_ptr(), alpha.data_ptr(),
         W.data_ptr(), xnorm2.data_ptr(), idx_c.data_ptr(), q_t.data_ptr(),

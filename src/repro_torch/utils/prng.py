@@ -1,9 +1,10 @@
 """JAX's ``threefry2x32`` PRNG in torch integer ops, bit for bit.
 
 Every random number of a MOCHA run (the driver's key chain, the per-task
-key split, the SDCA coordinate draws, the budget draws) comes from this
-generator, so a port run draws exactly the coordinates and budgets the JAX
-package draws from the same seed, and whole runs compare round by round.
+key split, the SDCA coordinate draws, the budget draws) and of LM sampling
+comes from this generator, so a port run draws exactly the coordinates,
+budgets and sampled tokens the JAX package draws from the same seed, and
+whole runs compare round by round.
 
 The layout is JAX's ``jax_threefry_partitionable=True`` one: ``split`` and
 ``random_bits`` hash a 64-bit iota (high word 0 here) under the key, and
@@ -81,10 +82,20 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return b1 ^ b2
 
 
-def uniform(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in float32 on [0, 1)."""
+def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=, maxval=)`` in float32:
+    ``max(minval, u * (maxval - minval) + minval)`` for u on [0, 1), the
+    multiply-add rounded once as XLA fuses it (float64 holds the product of
+    two float32 exactly)."""
     bits = (random_bits(key, shape) >> 9) | _ONE_F32_BITS
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    u = bits.to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:   # the same bits, fewer launches
+        return u
+    lo = torch.tensor(minval, dtype=torch.float32, device=u.device)
+    width = torch.tensor(maxval, dtype=torch.float32, device=u.device) - lo
+    return torch.maximum(lo, (u.double() * width.double()
+                              + lo.double()).float())
 
 
 def bernoulli(key: torch.Tensor, p: float,
@@ -92,3 +103,19 @@ def bernoulli(key: torch.Tensor, p: float,
     """``jax.random.bernoulli(key, p, shape)``: uniform below float32 p."""
     u = uniform(key, shape)
     return u < torch.tensor(p, dtype=torch.float32, device=u.device)
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in float32 (its default "low"
+    mode): ``-log(-log(u))`` for u uniform on [tiny, 1)."""
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(uniform(key, shape, minval=tiny)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)``: the Gumbel-max draw
+    ``argmax(logits + gumbel)``, token-equal to JAX's for the same key and
+    float32 logits."""
+    g = gumbel(key, logits.shape).to(logits.device)
+    return torch.argmax(g + logits, dim=axis)

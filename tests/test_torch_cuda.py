@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from repro_torch.core.subproblem import row_norms
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import sdca as K
 
 
@@ -80,3 +82,114 @@ def test_wrapper_checks_its_inputs():
         K.sdca_local_solve(*bad, 32)
     with pytest.raises(ValueError, match="shape"):
         K.sdca_local_solve(*a[:7], a[7][:, :5], 32)
+
+
+# ---------------------------------------------------------------------------
+# flash and decode attention: kernel against its plain version on the card
+# ---------------------------------------------------------------------------
+
+#: kernel vs plain version, element by element: |got - want| <=
+#: ATTN_RTOL * |want| + ATTN_ATOL * max(1, max |want|).  Both compute in f32
+#: and the online softmax sums in another order (ATTN_ATOL); in bf16 each
+#: output element is then rounded once, by at most 2^-7 of itself (ATTN_RTOL)
+ATTN_ATOL = 2e-5
+ATTN_RTOL = {torch.float32: 0.0, torch.bfloat16: 1e-2}
+
+
+def _normal(shape, dev, dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        dev, dtype)
+
+
+def _close(got, want):
+    assert got.dtype == want.dtype
+    ref = want.float()
+    tol = ATTN_RTOL[want.dtype] * ref.abs() \
+        + ATTN_ATOL * max(1.0, float(ref.abs().max()))
+    share = float(((got.float() - ref).abs() / tol).max())
+    assert share <= 1.0, share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d,causal,window,dtype", [
+    (1, 128, 1, 1, 32, True, None, torch.float32),
+    (2, 256, 3, 3, 64, True, None, torch.float32),
+    (1, 512, 2, 2, 128, True, None, torch.float32),
+    (1, 128, 1, 1, 256, True, None, torch.float32),
+    (1, 256, 2, 2, 64, True, 32, torch.float32),
+    (1, 256, 2, 2, 64, True, 64, torch.float32),
+    (1, 256, 2, 2, 64, True, 128, torch.float32),
+    (1, 128, 1, 1, 64, False, None, torch.float32),
+    (1, 128, 2, 2, 64, True, None, torch.bfloat16),
+    (1, 128, 4, 2, 64, True, None, torch.float32),
+    (2, 100, 15, 5, 64, True, None, torch.float32),
+    (1, 1000, 6, 2, 128, True, None, torch.bfloat16),
+    (1, 77, 2, 1, 64, False, 16, torch.float32)])
+def test_flash_kernel_matches_plain_version(b, s, h, hkv, d, causal, window,
+                                            dtype):
+    dev = _card()
+    q = _normal((b, s, h, d), dev, dtype, 0)
+    k = _normal((b, s, hkv, d), dev, dtype, 1)
+    v = _normal((b, s, hkv, d), dev, dtype, 2)
+    FA.reset_counts()
+    out = FA.flash_mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.COUNTS["flash_attention"] == 1
+    _close(out, FA.attention_ref(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,hkv,d,dtype", [
+    (2, 256, 2, 2, 64, torch.float32), (1, 1024, 4, 4, 128, torch.float32),
+    (3, 512, 1, 1, 32, torch.float32), (1, 2048, 8, 8, 64, torch.float32),
+    (2, 256, 2, 2, 64, torch.bfloat16), (2, 256, 4, 2, 64, torch.float32),
+    (8, 1064, 15, 5, 64, torch.float32), (8, 1064, 15, 5, 64,
+                                          torch.bfloat16)])
+def test_decode_kernel_matches_plain_version(b, t, h, hkv, d, dtype):
+    dev = _card()
+    q = _normal((b, 1, h, d), dev, dtype, 0)
+    k = _normal((b, t, hkv, d), dev, dtype, 1)
+    v = _normal((b, t, hkv, d), dev, dtype, 2)
+    rng = np.random.default_rng(3)
+    lens = rng.integers(1, t, b)
+    lens[0], lens[-1] = 1, t          # both ends of the range
+    lens = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    DA.reset_counts()
+    out = DA.decode_mha(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert DA.COUNTS["decode_attention"] == 1
+    _close(out[:, 0], DA.decode_attention_ref(q[:, 0], k, v, lens))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_ignores_slots_past_lengths_bitwise():
+    dev = _card()
+    q = _normal((2, 1, 4, 32), dev, seed=0)
+    k = _normal((2, 256, 2, 32), dev, seed=1)
+    v = _normal((2, 256, 2, 32), dev, seed=2)
+    lens = torch.tensor([100, 1], dtype=torch.int32, device=dev)
+    out1 = DA.decode_mha(q, k, v, lens)
+    k2, v2 = k.clone(), v.clone()
+    k2[0, 100:], v2[0, 100:] = 999.0, float("nan")
+    k2[1, 1:], v2[1, 1:] = float("inf"), -999.0
+    out2 = DA.decode_mha(q, k2, v2, lens)
+    assert torch.equal(out1, out2)
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_check_their_inputs():
+    dev = _card()
+    q = _normal((1, 64, 2, 48), dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention(q, q, q)
+    q = _normal((1, 64, 3, 64), dev)
+    with pytest.raises(ValueError, match="kv heads"):
+        FA.flash_attention(q, q[:, :, :2].contiguous(),
+                           q[:, :, :2].contiguous())
+    with pytest.raises(TypeError):
+        FA.flash_attention(q, q.double(), q)
+    cache = torch.zeros((1, 3, 64, 64), device=dev).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        DA.decode_attention(q[:, 0], cache, cache,
+                            torch.ones(1, dtype=torch.int32, device=dev))

@@ -23,6 +23,10 @@ for name in names:
     importlib.import_module(name)
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
+for sub in ("configs.smollm_360m", "models.layers", "models.transformer",
+            "serve.engine", "launch.serve", "kernels.build",
+            "kernels.flash_attention.ops", "kernels.decode_attention.ops"):
+    assert "repro_torch." + sub in names, sub
 print(len(names))
 """
 
@@ -38,7 +42,7 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 40
 
 
 def test_chip_smoke_imports_no_jax():
@@ -47,21 +51,29 @@ def test_chip_smoke_imports_no_jax():
     assert "from repro." not in src and "import repro\n" not in src
 
 
-@pytest.mark.parametrize("entry", ["federation", "experiment", "convert"])
+@pytest.mark.parametrize("entry", ["federation", "experiment", "convert",
+                                   "model", "serve"])
 def test_default_device_is_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present; the default device is available")
     from repro_torch.api import Exec, Experiment, Problem
+    from repro_torch.configs import get_config
     from repro_torch.convert import state_from_numpy
     from repro_torch.data.synthetic import tiny_problem
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import build_model
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "federation":
             tiny_problem()
         elif entry == "experiment":
             train = tiny_problem(device="cpu")[0]
             Experiment(problem=Problem(train=train), exec=Exec()).run(0)
-        else:
+        elif entry == "convert":
             state_from_numpy([[0.0]], [[0.0]])
+        elif entry == "model":
+            build_model(get_config("smollm-360m").reduced())
+        else:
+            serve_main(["--arch", "smollm-360m", "--local"])
 
 
 def test_unported_paths_name_their_roadmap_item():
@@ -86,6 +98,35 @@ def test_unported_paths_name_their_roadmap_item():
         Experiment(problem=Problem(train=[train, train])).route()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Experiment(problem=Problem(train=train)).serve()
+
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "llava-next-mistral-7b",
+                                  "rwkv6-7b", "mixtral-8x7b",
+                                  "granite-moe-1b-a400m", "zamba2-7b"])
+def test_unported_archs_name_their_roadmap_item(arch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+        get_config(arch)
+    cfg = get_config("smollm-360m").reduced()
+    kind = {"musicgen-medium": dict(family="audio"),
+            "llava-next-mistral-7b": dict(family="vlm"),
+            "rwkv6-7b": dict(block_type="rwkv6"),
+            "mixtral-8x7b": dict(family="moe", n_experts=4, top_k=2),
+            "granite-moe-1b-a400m": dict(n_experts=4, top_k=2),
+            "zamba2-7b": dict(block_type="mamba2", family="hybrid")}[arch]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+        build_model(dataclasses.replace(cfg, **kind), device="cpu")
+
+
+def test_serve_launcher_runs_on_the_cpu(capsys):
+    from repro_torch.launch.serve import main as serve_main
+    serve_main(["--arch", "smollm-360m", "--local", "--device", "cpu",
+                "--batch", "2", "--prompt-len", "5", "--new-tokens", "3"])
+    assert "generated: (2, 3)" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        serve_main(["--arch", "smollm-360m", "--dry-run"])
 
 
 def test_chip_smoke_refuses_without_card_or_package(tmp_path):
