@@ -7,13 +7,17 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 1. the card's name and power limit, the torch and CUDA versions;
 2. build the three kernels (SDCA, flash attention, decode attention) from
    ``src/repro_torch/kernels/*/csrc`` with nvcc (one process per source,
-   started together);
+   started together); print registers, spills and shared memory of the
+   tensor-core flash kernel and the split and merge decode kernels;
 3. hold each kernel against its plain PyTorch version on the card: SDCA at
    the MOCHA main path's shapes (Vehicle Sensor: gram mode; Human
    Activity: carry mode), a forced gram mode, duplicate-heavy streams, and
    budget 0 and mask 0 (exact no-ops); flash and decode at the cases of
    tests/test_kernels.py, a ragged S and T, and SmolLM-360M's shapes, in
-   f32 and bf16, and decode's slots past lengths (bitwise no influence);
+   f32 and bf16; flash bf16 (wgmma + TMA) at head_dim 128 and 256 and with
+   one-hot probabilities; decode at lengths on the split's chunk
+   boundaries, also against the plain split-and-merge; and decode's slots
+   past lengths (bitwise no influence);
 4. the MOCHA main path: full-size experiments through
    ``repro_torch.api.Experiment.run`` with ``engine="kernel"``, every launch
    counter set to 0 just before each and read just after, then the same
@@ -23,16 +27,19 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    0) through ``repro_torch.serve.Engine.generate``, batch 8, prompt 1024,
    32 new tokens, in f32 and bf16, through the kernels (counters set to 0
    just before each generate and read just after: 32 flash and 992 decode
-   launches) and through the plain versions on the card, logits and greedy
-   tokens compared (the plain route swaps the plain versions into
+   launches) and through the plain versions on the card, logits (the plain
+   route fed the kernel route's tokens) and greedy tokens compared (the
+   plain route swaps the plain versions into
    ``repro_torch.models.layers`` for the comparison); a reduced SmolLM on
    the card against the CPU;
 6. time the SDCA kernel (CUDA events over many launches), its plain
    version and the wall time per round of both engines; profile three
    kernel-engine rounds (``torch.profiler``);
 7. time flash and decode at SmolLM-360M's shapes (kernel, plain version,
-   ``scaled_dot_product_attention``) beside their bounds; prefill ms and
-   decode ms per token of both routes; profile a prefill and decode steps.
+   ``scaled_dot_product_attention``) beside their bounds, with each
+   kernel's design and share of the bound; prefill ms and decode ms per
+   token of both routes; profile a prefill and decode steps in f32 and
+   bf16, each attention kernel's device time per call beside its bound.
 
 It prints the kernel table as JSON, the card line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Exits nonzero,
@@ -130,13 +137,66 @@ def check_kernel(label, case, tol):
     return err
 
 
+def ptxas_summary(log):
+    """{kernel function: registers, spill bytes, stack} from nvcc's
+    ``-Xptxas -v`` log."""
+    import re
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = dict(registers=None, spill_stores=0, spill_loads=0,
+                           stack=0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes cumulative "
+                      r"stack size)?$", line)
+        if m and fn:
+            out[fn].update(registers=int(m.group(1)),
+                           stack=int(m.group(2) or 0))
+    return out
+
+
 def phase_build():
+    """Build the three sources; print nvcc's log and, for the tensor-core
+    flash kernel and the split and merge decode kernels, registers, spills
+    and the dynamic shared memory a block asks for."""
+    import importlib
     from repro_torch.kernels import build
+    FA, DA = (importlib.import_module(f"repro_torch.kernels.{n}.{n}")
+              for n in ("flash_attention", "decode_attention"))
     t0 = time.perf_counter()
     build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s for "
-          f"{', '.join(build.SOURCES)}, nvcc {' '.join(build.NVCC_FLAGS)}")
-    print(build.LAST_BUILD.get("log", "").strip(), flush=True)
+          f"{', '.join(build.SOURCES)}, nvcc {' '.join(build.NVCC_FLAGS)} "
+          f"-I{build.INCLUDE_DIR}")
+    log = build.LAST_BUILD.get("log", "")
+    print(log.strip(), flush=True)
+    flash = build.load("flash_attention", FA._bind)
+    decode = build.load("decode_attention", DA._bind)
+    for fn, r in ptxas_summary(log).items():
+        for kind in ("flash_wgmma_kernel", "decode_split_kernel",
+                     "decode_merge_kernel"):
+            if kind not in fn:
+                continue
+            d = int(fn.split(kind)[1].split("Li")[1].split("E")[0])
+            dt = 1 if "bfloat16" in fn or kind == "flash_wgmma_kernel" else 0
+            if kind == "flash_wgmma_kernel":
+                smem = flash.flash_attention_shared_bytes(d, 1)
+            elif kind == "decode_split_kernel":   # the main path's G, chunk
+                smem = decode.decode_attention_shared_bytes(3, d, 128, dt)
+            else:
+                smem = 0
+            print(f"ptxas [{kind} {'bf16' if dt else 'f32'} D{d}]: "
+                  f"{r['registers']} registers, spill stores "
+                  f"{r['spill_stores']} B, spill loads {r['spill_loads']} B, "
+                  f"stack {r['stack']} B, dynamic shared memory {smem} B",
+                  flush=True)
 
 
 def phase_kernels():
@@ -366,13 +426,9 @@ def phase_profile(main_runs):
 # LM serving: the flash and decode attention kernels
 # ---------------------------------------------------------------------------
 
-#: kernel vs plain version, element by element: |out - plain| <=
-#: ATTN_RTOL * |plain| + ATTN_ATOL * max(1, max |plain|).  Both compute in
-#: f32 from the same inputs and sum in another order (the ATTN_ATOL term);
-#: in bf16 each then rounds its output once, which moves an element by at
-#: most 2^-7 of itself (the ATTN_RTOL term)
-ATTN_ATOL = 2e-5
-ATTN_RTOL = {torch.float32: 0.0, torch.bfloat16: 1e-2}
+#: kernel vs plain version, element by element: the rule of
+#: ``repro_torch/kernels/flash_attention/ref.py`` (``attention_tolerance``,
+#: and ``flash_tolerance`` for flash, whose bf16 kernel rounds P to bf16)
 #: the main path: SmolLM-360M at full width, random weights from seed 0
 ARCH, SEED = "smollm-360m", 0
 BATCH, PROMPT, NEW = 8, 1024, 32
@@ -461,25 +517,56 @@ def _route(name):
     return plain_attention() if name == "plain" else contextlib.nullcontext()
 
 
-def check_attention(name, label, case):
+def _tolerance(name, case, plain):
+    from repro_torch.kernels.flash_attention import (attention_tolerance,
+                                                     flash_tolerance)
+    if name == "flash":
+        return flash_tolerance(case["q"], case["k"], case["v"], plain,
+                               causal=case["causal"], window=case["window"])
+    return attention_tolerance(plain)
+
+
+def _rule(name, dtype):
+    rule = "2e-5 x max(1, max|plain|)"
+    if dtype == torch.bfloat16:
+        rule = "1e-2 x |plain| + " + rule
+        if name == "flash":
+            rule += " + 2^-7 x attn(|v|)"
+    return rule
+
+
+def check_attention(name, label, case, plain=None):
     out = _attn_kernel(name, case)
-    ref = _attn_plain(name, case)
+    ref = _attn_plain(name, case) if plain is None else plain
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name} kernel output not finite: {label}")
     diff = (out.float() - ref.float()).abs()
-    rtol = ATTN_RTOL[ref.dtype]
-    scale = max(1.0, float(ref.float().abs().max()))
-    tol = rtol * ref.float().abs() + ATTN_ATOL * scale
-    err, share = float(diff.max()), float((diff / tol).max())
+    err = float(diff.max())
+    share = float((diff / _tolerance(name, case, ref)).max())
     ok = out.dtype == ref.dtype and share <= 1.0
     print(f"{name} kernel vs plain [{label}]: max_abs_err={err:.3e}, largest "
-          f"share of the tolerance {rtol:g} x |plain| + {ATTN_ATOL:g} x "
-          f"{scale:.3g}: {share:.3f} {'ok' if ok else 'FAIL'}", flush=True)
+          f"share of the tolerance {_rule(name, ref.dtype)}: {share:.3f} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"{name} kernel disagrees with plain version: "
                              f"{label}")
     return err
+
+
+def one_hot_case(d, b=2, s=192, h=4, hkv=2):
+    """bf16 flash inputs whose every query row scores one key (a
+    permutation of the rows) far above the rest, and the output that
+    implies, that key's v row: P is one-hot, so a probability that reaches
+    the wrong key shows as an error of order |v|."""
+    k = _normal((b, s, hkv, d), torch.float32, 1)
+    v = _normal((b, s, hkv, d), torch.float32, 2)
+    perm = torch.from_numpy(np.random.default_rng(4).permutation(s)).to(DEV)
+    q = 8.0 * k[:, perm].repeat_interleave(h // hkv, dim=2)
+    bf = torch.bfloat16
+    case = dict(q=q.to(bf).contiguous(), k=k.to(bf), v=v.to(bf),
+                causal=False, window=None)
+    return case, case["v"][:, perm].repeat_interleave(h // hkv, dim=2)
 
 
 def phase_attention_kernels():
@@ -490,9 +577,9 @@ def phase_attention_kernels():
     errs = {(name, dt): 0.0 for name in ("flash", "decode")
             for dt in (f32, bf16)}
 
-    def run(name, label, case):
+    def run(name, label, case, plain=None):
         key = (name, case["q"].dtype)
-        errs[key] = max(errs[key], check_attention(name, label, case))
+        errs[key] = max(errs[key], check_attention(name, label, case, plain))
 
     for b, h, s, d in ((1, 1, 128, 32), (2, 3, 256, 64), (1, 2, 512, 128),
                        (1, 1, 128, 256)):
@@ -510,6 +597,25 @@ def phase_attention_kernels():
     for dt in (f32, bf16):
         run("flash", f"main path B8 S1024 H15/5 D64 {str(dt)[6:]}",
             flash_case(BATCH, PROMPT, 15, 5, 64, dt))
+    # the bf16 tensor-core kernel at head_dim 128 and 256 (starcoder2-15b,
+    # gemma-2b), ragged S, windows, non-causal, and one-hot P at all three
+    run("flash", "bf16 d128 B2 S1024 H8/2", flash_case(2, 1024, 8, 2, 128,
+                                                       bf16))
+    run("flash", "bf16 d256 ragged S 1000 H8/1", flash_case(1, 1000, 8, 1,
+                                                            256, bf16))
+    run("flash", "bf16 d128 window 200", flash_case(1, 384, 2, 2, 128, bf16,
+                                                    window=200))
+    run("flash", "bf16 d256 non-causal window 64",
+        flash_case(1, 384, 2, 1, 256, bf16, causal=False, window=64))
+    run("flash", "bf16 d64 ragged S 77", flash_case(1, 77, 2, 1, 64, bf16))
+    for d in (64, 128, 256):
+        case, want = one_hot_case(d)
+        got = _attn_kernel("flash", case)
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= 2e-2 * max(1.0, float(want.float().abs().max())):
+            raise AssertionError(f"flash bf16 d{d}: one-hot P output is not "
+                                 f"the chosen key's v row ({err:.3e})")
+        run("flash", f"bf16 d{d} one-hot P (vs chosen v: {err:.2e})", case)
 
     rng = np.random.default_rng(0)
     for b, h, t, d in ((2, 2, 256, 64), (1, 4, 1024, 128), (3, 1, 512, 32),
@@ -524,6 +630,22 @@ def phase_attention_kernels():
         run("decode", f"main path B8 T1064 H15/5 D64 lengths 1..T "
             f"{str(dt)[6:]}", decode_case(BATCH, MAX_LEN, 15, 5, 64, lens,
                                           dt))
+    # lengths at chunk boundaries of the split (T 1064 is not a multiple of
+    # the chunk), against the plain version and the plain split-and-merge
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_split_ref, split_plan)
+    chunk = split_plan(MAX_LEN, BATCH, 5, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    edges = [min(n, MAX_LEN) for n in (1, 63, 64, 65, 128, MAX_LEN,
+                                       chunk + 1, MAX_LEN - 1)][:BATCH]
+    for dt in (f32, bf16):
+        case = decode_case(BATCH, MAX_LEN, 15, 5, 64, edges, dt)
+        run("decode", f"split chunk {chunk}, lengths {edges} "
+            f"{str(dt)[6:]}", case)
+        run("decode", f"split chunk {chunk} vs plain split+merge "
+            f"{str(dt)[6:]}", case, decode_attention_split_ref(
+                case["q"][:, 0], case["k"], case["v"], case["lengths"],
+                chunk)[:, None])
     check_decode_masking(lens)
     return errs
 
@@ -565,6 +687,21 @@ def _generate(model, tokens, dtype):
     return out, logits, time.perf_counter() - t0
 
 
+def _forced_logits(model, tokens, forced, dtype):
+    """The logits of ``Engine.generate`` (prefill, then NEW - 1 decode
+    steps) with the decode steps fed the tokens ``forced`` (B, NEW) instead
+    of their own greedy choices."""
+    cache = model.init_cache(BATCH, MAX_LEN, dtype=dtype)
+    logits, cache = model.prefill({"tokens": tokens}, cache, dtype=dtype)
+    seen = [logits]
+    for i in range(NEW - 1):
+        tok = torch.from_numpy(np.ascontiguousarray(forced[:, i])).to(
+            DEV, torch.int32)
+        logits, cache = model.decode_step(tok, cache, dtype=dtype)
+        seen.append(logits)
+    return torch.stack(seen, dim=1)
+
+
 def phase_lm_main_path():
     """The LM main path: SmolLM-360M at full width through Engine.generate,
     the kernel route with the launch counters set to 0 just before each
@@ -585,7 +722,11 @@ def phase_lm_main_path():
                                  f"{want}")
         reset_all_counts()
         with plain_attention():
-            tok_p, lg_p, wall_p = _generate(model, tokens, dtype)
+            tok_p, _, wall_p = _generate(model, tokens, dtype)
+            # the plain route fed the kernel route's tokens, so each step's
+            # logits are compared on the same inputs even where a near-tie
+            # sends the two greedy paths apart (bf16)
+            lg_p = _forced_logits(model, tokens, tok_k, dtype)
         if any(read_counts().values()):
             raise AssertionError(f"the plain route launched a kernel: "
                                  f"{read_counts()}")
@@ -601,7 +742,8 @@ def phase_lm_main_path():
         name = str(dtype)[6:]
         print(f"LM main path [{ARCH} {name}, B{BATCH} prompt {PROMPT} + "
               f"{NEW} new, max_len {MAX_LEN}]: launches {counts}; logits "
-              f"kernel vs plain max abs err prefill {err_prefill:.3e}, "
+              f"kernel vs plain (fed the kernel route's tokens) max abs err "
+              f"prefill {err_prefill:.3e}, "
               f"decode steps {err_steps:.3e} (tolerance {LOGIT_TOL[dtype]:g}"
               f" x {scale:.3g}); greedy tokens equal: {same}; wall "
               f"generate kernel {wall_k:.3f} s, plain {wall_p:.3f} s; "
@@ -650,23 +792,32 @@ def attention_bound(name, case):
     read or written once over HBM bandwidth, or the live (query, key) pairs'
     4 D flops over the dtype's peak, whichever is larger."""
     q, k = case["q"], case["k"]
-    es = q.element_size()
+    b, _, h, d = q.shape
+    live = int(case["lengths"].sum()) if name == "decode" else None
+    return shape_bound(name, q.dtype, b, q.shape[1], h, k.shape[2], d, live)
+
+
+def shape_bound(name, dtype, b, s, h, hkv, d, live=None):
+    """``attention_bound`` from shapes: flash over a causal sequence of s
+    (no window); decode over ``live`` cache slots in all, one query each."""
+    es = torch.empty((), dtype=dtype).element_size()
     if name == "flash":
-        b, s, h, d = q.shape
-        hkv = k.shape[2]
         nbytes = es * (2 * b * s * h * d + 2 * b * s * hkv * d)
-        pairs = b * h * s * (s + 1) // 2       # causal, no window
+        pairs = b * h * s * (s + 1) // 2
     else:
-        b, _, h, d = q.shape
-        hkv = k.shape[2]
-        live = int(case["lengths"].sum())
         nbytes = es * (2 * b * h * d + 2 * live * hkv * d) + 4 * b
         pairs = h * live
     flops = 4 * d * pairs
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_OPS[q.dtype]
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_OPS[dtype]
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, flops=flops)
+
+
+def design(name, dtype, d=64):
+    """The kernel a call launches (the decode kernel has one design)."""
+    from repro_torch.kernels.flash_attention import design as flash_design
+    return flash_design(dtype, d) if name == "flash" else "split+merge"
 
 
 def _sdpa(name, case):
@@ -682,6 +833,11 @@ def _sdpa(name, case):
                                           enable_gqa=True)
 
 
+#: the attention kernels as the profiler names them
+_PROFILE_KERNELS = {"flash": ("flash_wgmma_kernel", "flash_kernel"),
+                    "decode": ("decode_split_kernel", "decode_merge_kernel")}
+
+
 def _rotating_ms(fn, cases, reps):
     """Per-call time over ``reps`` calls that cycle through ``cases`` (more
     bytes than the 50 MB L2 holds, as a model's layers would find them)."""
@@ -693,6 +849,31 @@ def _rotating_ms(fn, cases, reps):
         fn(cases[i[0] % len(cases)])
         i[0] += 1
     return _events_ms(step, reps)
+
+
+def _host_ms(fn, cases, reps):
+    """Host time to enqueue one call (no synchronize inside the loop)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(cases[i % len(cases)])
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * host / reps
+
+
+def _device_ms_per_call(fn, cases, reps, keys):
+    """Device time per call of the kernels whose names hold one of
+    ``keys``, by torch.profiler: the kernels alone, without the gaps the
+    host leaves between calls."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(cases[i % len(cases)])
+        torch.cuda.synchronize()
+    return sum(_device_ms(e) for e in prof.key_averages()
+               if any(k in e.key for k in keys)) / reps
 
 
 def phase_attention_timing(errs):
@@ -709,20 +890,36 @@ def phase_attention_timing(errs):
                     else (lambda i: decode_case(BATCH, MAX_LEN, 15, 5, 64,
                                                 lens, dtype, seed=10 * i)))
             cases = [make(i) for i in range(n_copies)]
-            ms = _rotating_ms(lambda c: _attn_kernel(name, c), cases, 50)
+            kernel = lambda c: _attn_kernel(name, c)   # noqa: E731
+            ms = _rotating_ms(kernel, cases, 50)
             plain_ms = _rotating_ms(lambda c: _attn_plain(name, c), cases, 5)
             lib_ms = _rotating_ms(lambda c: _sdpa(name, c), cases, 50)
+            host_ms = _host_ms(kernel, cases, 50)
+            device_ms = _device_ms_per_call(kernel, cases, 50,
+                                            _PROFILE_KERNELS[name])
+            if not device_ms > 0:
+                raise AssertionError(f"the profiler saw no {name} kernel "
+                                     f"on the device")
             b = attention_bound(name, cases[0])
-            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       max_abs_err=errs[(name, dtype)], **b)
+            row = dict(design=design(name, dtype), ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, host_ms=host_ms,
+                       device_ms=device_ms, max_abs_err=errs[(name, dtype)],
+                       share_of_bound=b["bound_ms"] / ms,
+                       device_share_of_bound=b["bound_ms"] / device_ms,
+                       **b)
             rows[(name, name_dt)] = row
-            print(f"timing [{name} {name_dt}, SmolLM-360M one layer"
+            print(f"timing [{name} {name_dt} ({row['design']}), SmolLM-360M "
+                  f"one layer"
                   f"{', lengths ' + str(lens) if name == 'decode' else ''}]"
                   f": kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms, "
                   f"SDPA {lib_ms:.4f} ms, bound {b['bound_ms']:.5f} ms "
                   f"({b['bound_by']}; {b['bytes'] / 1e6:.2f} MB, "
-                  f"{b['flops'] / 1e9:.3f} GFLOP) [{card_line()}]",
-                  flush=True)
+                  f"{b['flops'] / 1e9:.3f} GFLOP), kernel at "
+                  f"{100 * row['share_of_bound']:.1f}% of the bound; device "
+                  f"time {device_ms:.4f} ms/call "
+                  f"({100 * row['device_share_of_bound']:.1f}% of the "
+                  f"bound), host enqueue {host_ms:.4f} ms/call "
+                  f"[{card_line()}]", flush=True)
     return rows
 
 
@@ -770,39 +967,68 @@ def _device_ms(event) -> float:
 
 def phase_lm_profile(lm):
     """Where a prefill's and a decode step's time goes (torch.profiler,
-    kernel route, float32, after the runs above warmed it up)."""
+    kernel route, f32 and bf16, after the runs above warmed it up), and
+    each attention kernel's device time per call beside its bound."""
     from torch.profiler import ProfilerActivity, profile
     model, tokens = lm["model"], lm["tokens"]
-    dtype = torch.float32
-    cache = model.init_cache(BATCH, MAX_LEN, dtype=dtype)
-    for label, steps in (("prefill", 1), ("decode", 8)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+    cfg = model.cfg
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for dtype in (torch.float32, torch.bfloat16):
+        name_dt = str(dtype)[6:]
+        cache = model.init_cache(BATCH, MAX_LEN, dtype=dtype)
+        for label, steps in (("prefill", 1), ("decode", 8)):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if label == "prefill":
+                    logits, cache = model.prefill({"tokens": tokens}, cache,
+                                                  dtype=dtype)
+                else:
+                    for _ in range(steps):
+                        logits, cache = model.decode_step(
+                            torch.argmax(logits, -1).to(torch.int32), cache,
+                            dtype=dtype)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            events = [e for e in prof.key_averages()
+                      if getattr(e, "device_type", None) is not None
+                      and "CUDA" in str(e.device_type)]
+            dev_us = sum(getattr(e, "self_device_time_total", 0)
+                         for e in events)
+            top = sorted(events, key=lambda e: -getattr(
+                e, "self_device_time_total", 0))[:6]
+            print(f"profile [{ARCH} {name_dt} kernel route, {label} "
+                  f"x{steps}]: wall {1e3 * wall / steps:.3f} ms per call, "
+                  f"device busy {dev_us / 1e3 / steps:.3f} ms "
+                  f"({100 * dev_us / 1e6 / wall:.1f}% of wall), "
+                  f"{sum(e.count for e in events) / steps:.0f} device kernels"
+                  f" per call; top by device time: " + "; ".join(
+                      f"{e.key[:50]} x{e.count} {_device_ms(e) / steps:.3f} "
+                      f"ms" for e in top), flush=True)
+            name = "flash" if label == "prefill" else "decode"
+            mine = [e for e in events
+                    if any(k in e.key for k in _PROFILE_KERNELS[name])]
+            calls = cfg.n_layers * steps
+            kern_ms = sum(_device_ms(e) for e in mine)
             if label == "prefill":
-                logits, cache = model.prefill({"tokens": tokens}, cache,
-                                              dtype=dtype)
-            else:
-                for _ in range(steps):
-                    logits, cache = model.decode_step(
-                        torch.argmax(logits, -1).to(torch.int32), cache,
-                        dtype=dtype)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = [e for e in prof.key_averages()
-                  if getattr(e, "device_type", None) is not None
-                  and "CUDA" in str(e.device_type)]
-        dev_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
-        top = sorted(events, key=lambda e: -getattr(
-            e, "self_device_time_total", 0))[:6]
-        print(f"profile [{ARCH} f32 kernel route, {label} x{steps}]: wall "
-              f"{1e3 * wall / steps:.3f} ms per call, device busy "
-              f"{dev_us / 1e3 / steps:.3f} ms ({100 * dev_us / 1e6 / wall:.1f}"
-              f"% of wall), {sum(e.count for e in events) / steps:.0f} device "
-              f"kernels per call; top by device time: " + "; ".join(
-                  f"{e.key[:50]} x{e.count} {_device_ms(e) / steps:.3f} ms"
-                  for e in top), flush=True)
+                b = shape_bound("flash", dtype, BATCH, PROMPT, h, hkv, d)
+                bound_ms = b["bound_ms"]
+            else:   # the steps read PROMPT + 1 .. PROMPT + steps slots
+                bound_ms = sum(shape_bound(
+                    "decode", dtype, BATCH, 1, h, hkv, d,
+                    BATCH * (PROMPT + 1 + i))["bound_ms"]
+                    for i in range(steps)) / steps
+            per_call = kern_ms / calls
+            print(f"profile [{name} kernel ({design(name, dtype, d)}) "
+                  f"{name_dt}, {label}]: "
+                  + ", ".join(f"{e.key[:40]} x{e.count} "
+                              f"{_device_ms(e) / steps:.3f} ms" for e in mine)
+                  + f"; {kern_ms / steps:.3f} ms device time per {label} "
+                  f"({calls // steps} calls), {1e3 * per_call:.2f} us per "
+                  f"call, bound {1e3 * bound_ms:.2f} us: "
+                  f"{100 * bound_ms / per_call if per_call else 0:.1f}% of "
+                  f"the bound", flush=True)
 
 
 def main() -> int:

@@ -1,10 +1,14 @@
 """Build the port's CUDA kernels with ``nvcc`` and bind them with ``ctypes``.
 
 Every source (``<kernel>/csrc/<kernel>.cu``) has a plain C interface, so it
-compiles in seconds into a shared library without PyTorch's headers.  The
+compiles in seconds into a shared library without PyTorch's headers; the
+Hopper helpers they share (mbarriers, TMA, wgmma) are in
+``include/hopper.cuh``.  Nothing links ``libcuda``: the one driver-API call,
+``cuTensorMapEncodeTiled``, is looked up through the CUDA runtime.  The
 libraries go into ``build/`` beside this module (listed in ``.gitignore``)
-at first use, each named after a hash of its source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+at first use, each named after a hash of its source, the shared headers
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is loaded as it is.
 ``build`` starts one ``nvcc`` per source, all at once: the first kernel a
 process loads builds all of them.
 """
@@ -26,6 +30,7 @@ SOURCES: Dict[str, Path] = {
     name: _HERE / name / "csrc" / f"{name}.cu"
     for name in ("sdca", "flash_attention", "decode_attention")}
 BUILD_DIR = _HERE / "build"
+INCLUDE_DIR = _HERE / "include"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,7 +52,10 @@ def nvcc_path() -> str:
 
 
 def _target(src: Path) -> Path:
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(INCLUDE_DIR.glob("*.cuh")))
+    tag = hashlib.sha256(src.read_bytes() + headers
+                         + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{tag.hexdigest()[:12]}.so"
 
 
@@ -68,7 +76,8 @@ def build(sources: Sequence[Path] = tuple(SOURCES.values())
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         proc = subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            [nvcc_path(), *NVCC_FLAGS, f"-I{INCLUDE_DIR}", "-o", tmp,
+             str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((src, lib, tmp, proc))
     logs, failed = [], []

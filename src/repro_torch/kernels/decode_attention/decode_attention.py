@@ -7,8 +7,9 @@ of its GQA wrapper: q (B, H, D) and the cache k, v (B, T, Hkv, D), read in
 place up to each row's length.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs the plain version (``ref.decode_attention_ref``).  Each launch adds
-one to ``COUNTS["decode_attention"]``.
+it runs the plain version (``ref.decode_attention_ref``).  A call launches
+two kernels, the split phase and the merge (``split_plan`` picks the
+chunk), and adds one to ``COUNTS["decode_attention"]``.
 """
 from __future__ import annotations
 
@@ -24,6 +25,14 @@ from repro_torch.kernels.flash_attention.flash_attention import (DTYPES,
 #: launches of the kernel since the last ``reset_counts``
 COUNTS = {"decode_attention": 0}
 _ERR_SHARED_MEMORY = -2
+#: cache slots per TMA tile; a chunk is a multiple of it
+TILE = 64
+#: the largest chunk (its scores sit in shared memory)
+MAX_CHUNK = 512
+#: blocks of the split phase per SM the chunk is chosen for
+BLOCKS_PER_SM = 2
+#: SM count of each device index, read once
+_SMS = {}
 
 
 def reset_counts() -> None:
@@ -33,11 +42,29 @@ def reset_counts() -> None:
 
 def _bind(lib) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attention_fwd.argtypes = ([P] * 5 + [I] * 6 + [ctypes.c_float]
+    lib.decode_attention_fwd.argtypes = ([P] * 6 + [I] * 7 + [ctypes.c_float]
                                          + [I, P])
     lib.decode_attention_fwd.restype = I
-    lib.decode_attention_shared_bytes.argtypes = [I, I]
+    lib.decode_attention_shared_bytes.argtypes = [I, I, I, I]
     lib.decode_attention_shared_bytes.restype = ctypes.c_longlong
+
+
+def split_plan(t: int, b: int, hkv: int, sms: int = 132) -> int:
+    """Cache slots per chunk of the split phase: the largest multiple of
+    ``TILE`` (at most ``MAX_CHUNK``) that still gives the grid of
+    ``b * hkv * ceil(t / chunk)`` blocks ``BLOCKS_PER_SM`` blocks on each of
+    ``sms`` SMs.  Depends on shapes only, never on the lengths, so a decode
+    step does not synchronise."""
+    splits = max(1, -(-BLOCKS_PER_SM * sms // max(1, b * hkv)))
+    per_split = -(-t // splits)
+    return min(MAX_CHUNK, TILE * max(1, per_split // TILE))
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SMS[dev.index]
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,17 +98,23 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_operand("lengths", lengths, (b,), (torch.int32,), q.device)
     out = torch.empty_like(q)
     dev = q.device
+    chunk = split_plan(t, b, hkv, _sm_count(dev))
+    n_split = max(1, -(-t // chunk))
+    partials = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32,
+                           device=dev)
     lib = load("decode_attention", _bind)
     rc = lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, t, h, hkv, d, DTYPES[q.dtype], 1.0 / d ** 0.5,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), partials.data_ptr(), b, t, h, hkv, d,
+        DTYPES[q.dtype], chunk, 1.0 / d ** 0.5, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc == _ERR_SHARED_MEMORY:
+        need = lib.decode_attention_shared_bytes(h // hkv, d, chunk,
+                                                 DTYPES[q.dtype])
         raise ValueError(
-            f"decode kernel needs "
-            f"{lib.decode_attention_shared_bytes(h // hkv, d)} bytes of "
-            f"shared memory per block at {h // hkv} query heads per kv head, "
-            f"head_dim {d}; the device allows less")
+            f"decode kernel needs {need} bytes of shared memory per block at "
+            f"{h // hkv} query heads per kv head, head_dim {d}, chunk "
+            f"{chunk}; the device allows less")
     if rc != 0:
         raise RuntimeError(f"decode attention kernel launch failed: "
                            f"error {rc}")

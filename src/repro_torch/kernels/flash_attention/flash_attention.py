@@ -5,7 +5,9 @@
 GQA wrapper: q (B, S, H, D) and k, v (B, S, Hkv, D), read in place.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs the plain version (``ref.attention_ref``).  Each launch adds one to
+it runs the plain version (``ref.attention_ref``).  bf16 at head_dim 64,
+128 and 256 runs on the tensor cores (wgmma fed by TMA); f32, and bf16 at
+head_dim 32, on the CUDA cores (``design``).  Each launch adds one to
 ``COUNTS["flash_attention"]``.
 """
 from __future__ import annotations
@@ -23,6 +25,15 @@ COUNTS = {"flash_attention": 0}
 #: head dims and dtypes the kernel is built for (dtype -> its C code)
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims of the bf16 tensor-core kernel
+WGMMA_HEAD_DIMS = (64, 128, 256)
+
+
+def design(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel a call of this dtype and head_dim launches."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma+tma"
+    return "cuda-core"
 
 
 def reset_counts() -> None:
@@ -35,6 +46,8 @@ def _bind(lib) -> None:
     lib.flash_attention_fwd.argtypes = ([P] * 4 + [I] * 8 + [ctypes.c_float]
                                         + [I, P])
     lib.flash_attention_fwd.restype = I
+    lib.flash_attention_shared_bytes.argtypes = [I, I]
+    lib.flash_attention_shared_bytes.restype = ctypes.c_longlong
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,0 +1,302 @@
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// TMA tile loads, wgmma descriptors and instructions, and the host-side
+// encoding of tensor maps.
+//
+// cuTensorMapEncodeTiled is a driver-API function.  The kernels' libraries
+// link only the CUDA runtime, so it is looked up once through the runtime's
+// driver entry point instead of linking libcuda; <cuda.h> supplies only its
+// types.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// ---------------------------------------------------------------------------
+// mbarriers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float neg_inf() {
+  return __int_as_float(0xff800000);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// arrives once and adds `bytes` to the transactions the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// waits until the phase of parity `parity` has completed.  A wait that
+// never ends (a load that never lands) traps after 10 s, so a fault shows as
+// a launch failure and not as a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    const uint64_t now = global_ns();
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > 10000000000ull) __trap();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// TMA: one thread copies a 4-d box of a tensor into shared memory and the
+// copy completes on `bar`.  Coordinates are innermost first; elements past
+// the tensor's extent are filled with zeros.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (warpgroup matrix multiply-accumulate), bf16 in, f32 accumulators
+// ---------------------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a tile in the 128-byte swizzled layout
+// that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes, 8-row
+// groups of 1024 bytes (the stride byte offset), the atom 1024-byte aligned.
+// `lbo` is the leading byte offset (ignored for K-major operands whose K
+// step stays inside the 128-byte row).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint64_t addr = smem_addr(p);
+  uint64_t d = 0;
+  d |= (addr & 0x3FFFF) >> 4;
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;   // layout type: 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits until every committed product of this warpgroup has completed
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of an accumulator or A
+// operand register across the asynchronous product that owns it (an A
+// register must keep its value until the product completes)
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+__device__ __forceinline__ void fence_operand(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+#define HOPPER_ACC32(d)                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+
+#define HOPPER_D32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B both K-major in shared
+// memory; accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (four bf16x2 per
+// thread, the k16 A fragment), B MN-major in shared memory (transposed)
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HOPPER_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef HOPPER_D32
+#undef HOPPER_ACC32
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, looked
+// up once; null if the driver does not have it
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &found) != cudaSuccess)
+      return (EncodeTiledFn) nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess)
+      return (EncodeTiledFn) nullptr;
+#endif
+    if (found != cudaDriverEntryPointSuccess) return (EncodeTiledFn) nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// ---------------------------------------------------------------------------
+// Host: per-call set-up, done once per device
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxDevices = 64;
+
+// makes `device` current unless it already is; 0 or a CUDA error code
+inline int use_device(int device) {
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
+  return (int)err;
+}
+
+// lets `kernel` ask for `bytes` of dynamic shared memory on the current
+// device; the attribute is set at the first call on each device (and again
+// only for more bytes).  0 or a CUDA error code
+template <auto kernel>
+int allow_shared(int bytes) {
+  static int allowed[kMaxDevices] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices && allowed[dev] >= bytes) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices) allowed[dev] = bytes;
+  return 0;
+}
+
+// the most dynamic shared memory a block may ask for on `device`
+inline long long shared_limit(int device) {
+  static long long limit[kMaxDevices] = {0};
+  if (device >= 0 && device < kMaxDevices && limit[device]) {
+    return limit[device];
+  }
+  int bytes = 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return 0;
+  if (device >= 0 && device < kMaxDevices) limit[device] = bytes;
+  return bytes;
+}
+
+// returned by the entry points when a tensor map cannot be encoded
+constexpr int kErrTensorMap = -3;
+
+// A tensor map over a contiguous (n3, n2, n1, n0) tensor (n0 innermost),
+// box (b0, b1, b2, b3) elements.  Returns 0 or kErrTensorMap.
+inline int encode_4d(CUtensorMap* map, CUtensorMapDataType type,
+                     int elem_bytes, const void* ptr, uint64_t n0,
+                     uint64_t n1, uint64_t n2, uint64_t n3, uint32_t b0,
+                     uint32_t b1, uint32_t b2, uint32_t b3,
+                     CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return kErrTensorMap;
+  const cuuint64_t dims[4] = {n0, n1, n2, n3};
+  const cuuint64_t strides[3] = {n0 * elem_bytes, n0 * n1 * elem_bytes,
+                                 n0 * n1 * n2 * elem_bytes};
+  const cuuint32_t box[4] = {b0, b1, b2, b3};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
+         elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+}  // namespace hopper

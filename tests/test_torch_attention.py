@@ -139,3 +139,116 @@ def test_wrappers_refuse_devices_other_than_cuda_and_cpu():
         FA.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="cuda or cpu"):
         DA.decode_attention(q[:, 0], q, q, torch.ones(1, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# the decode kernel's split and merge, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+def _split_inputs(b, h, hkv, t, d, seed=3):
+    q, k, v = _arrays((b, h, d), (b, t, hkv, d), (b, t, hkv, d), seed=seed)
+    return q, k, v
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("lens", [
+    [1, 64], [63, 65], [128, 129], [300, 300], [1, 2], [257, 190]])
+def test_decode_split_ref_matches_jax_oracle(chunk, lens):
+    """Lengths 1, on chunk boundaries (64, 128), T (300), and rows whose
+    later chunks lie wholly past their length: the split-and-merge plain
+    version against the JAX package's oracle and the port's plain version,
+    within f32 rounding (max abs 1e-5 on outputs of size ~1)."""
+    b, h, hkv, t, d = 2, 6, 2, 300, 32
+    q, k, v = _split_inputs(b, h, hkv, t, d)
+    lens_np = np.asarray(lens, np.int32)
+    rep = h // hkv
+    want = jax_decode_ref(jnp.asarray(q),
+                          jnp.repeat(jnp.asarray(k), rep, 2).transpose(
+                              0, 2, 1, 3),
+                          jnp.repeat(jnp.asarray(v), rep, 2).transpose(
+                              0, 2, 1, 3), jnp.asarray(lens_np))
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    lt = torch.from_numpy(lens_np)
+    got = DA.decode_attention_split_ref(qt, kt, vt, lt, chunk)
+    assert torch.isfinite(got).all()
+    _assert_close(got, want, "float32")
+    torch.testing.assert_close(got, DA.decode_attention_ref(qt, kt, vt, lt),
+                               atol=1e-6, rtol=0)
+
+
+def test_decode_split_ref_dead_chunks_add_nothing():
+    """Slots past a row's length add exactly nothing, whatever they hold
+    (NaN included): chunks wholly past it merge as l = 0."""
+    q, k, v = (torch.from_numpy(a) for a in _split_inputs(2, 4, 2, 256, 32))
+    lens = torch.tensor([70, 1], dtype=torch.int32)
+    out1 = DA.decode_attention_split_ref(q, k, v, lens, 64)
+    k2, v2 = k.clone(), v.clone()
+    k2[0, 70:], v2[0, 70:] = 999.0, float("nan")
+    k2[1, 1:], v2[1, 1:] = float("inf"), float("nan")
+    out2 = DA.decode_attention_split_ref(q, k2, v2, lens, 64)
+    assert torch.equal(out1, out2)
+
+
+@pytest.mark.parametrize("t,b,hkv,chunk", [
+    (1064, 8, 5, 128), (256, 1, 1, 64), (8192, 64, 8, 512), (130, 8, 2, 64),
+    (1000, 6, 1, 64)])
+def test_decode_split_plan(t, b, hkv, chunk):
+    """The chunk is a multiple of 64, at most 512, and gives the split
+    phase at least two blocks per SM of a 132-SM card where it can."""
+    assert DA.split_plan(t, b, hkv, 132) == chunk
+    n_split = -(-t // chunk)
+    assert chunk % 64 == 0 and chunk <= 512
+    assert b * hkv * n_split >= min(2 * 132, b * hkv * -(-t // 64))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 flash rule: P rounded to bf16 passes, a misweighted tile fails
+# ---------------------------------------------------------------------------
+
+def _flash_emulation(q, k, v, causal=True, tile_scale=None):
+    """The tensor-core kernel's arithmetic in plain PyTorch: f32 scores and
+    probabilities, l summed from the f32 p, P rounded to bf16 before P V,
+    the output rounded to bf16.  ``tile_scale`` (row, key0, key1, factor)
+    misweights one key tile of one query row."""
+    b, s, h, d = q.shape
+    rep = h // k.shape[2]
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    sc = torch.einsum("bshd,bthd->bhst", q.float(), kf) / d ** 0.5
+    pos = torch.arange(s)
+    if causal:
+        sc = sc.masked_fill(pos[None, :] > pos[:, None], float("-inf"))
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    l_sum = p.sum(-1, keepdim=True)
+    pb = p.to(torch.bfloat16).float()
+    if tile_scale is not None:
+        row, k0, k1, f = tile_scale
+        pb[:, :, row, k0:k1] *= f
+    out = torch.einsum("bhst,bthd->bshd", pb, vf) / l_sum.transpose(1, 2)
+    return out.to(torch.bfloat16)
+
+
+def _share(out, q, k, v, causal=True):
+    plain = FA.attention_ref(q, k, v, causal=causal)
+    tol = FA.flash_tolerance(q, k, v, plain, causal=causal)
+    return float(((out.float() - plain.float()).abs() / tol).max())
+
+
+@pytest.mark.parametrize("s,h,hkv,d,causal", [
+    (200, 2, 1, 64, True), (256, 4, 2, 128, True), (77, 2, 2, 64, False),
+    (130, 2, 1, 256, True)])
+def test_flash_bf16_rule_passes_rounded_probabilities(s, h, hkv, d, causal):
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _arrays(
+        (1, s, h, d), (1, s, hkv, d), (1, s, hkv, d), seed=5))
+    assert _share(_flash_emulation(q, k, v, causal), q, k, v, causal) <= 1.0
+
+
+def test_flash_bf16_rule_fails_a_misweighted_tile():
+    """A row whose one key tile (rows 0..63 see keys of tile 0 only) is
+    weighted 5% too much fails the rule; the same emulation without the
+    misweighting passes it."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _arrays(
+        (1, 200, 2, 64), (1, 200, 1, 64), (1, 200, 1, 64), seed=5))
+    assert _share(_flash_emulation(q, k, v), q, k, v) <= 1.0
+    bad = _flash_emulation(q, k, v, tile_scale=(40, 0, 64, 1.05))
+    assert _share(bad, q, k, v) > 1.5

@@ -88,12 +88,11 @@ def test_wrapper_checks_its_inputs():
 # flash and decode attention: kernel against its plain version on the card
 # ---------------------------------------------------------------------------
 
-#: kernel vs plain version, element by element: |got - want| <=
-#: ATTN_RTOL * |want| + ATTN_ATOL * max(1, max |want|).  Both compute in f32
-#: and the online softmax sums in another order (ATTN_ATOL); in bf16 each
-#: output element is then rounded once, by at most 2^-7 of itself (ATTN_RTOL)
-ATTN_ATOL = 2e-5
-ATTN_RTOL = {torch.float32: 0.0, torch.bfloat16: 1e-2}
+#: kernel vs plain version, element by element, by the rule of
+#: ``kernels/flash_attention/ref.py`` (``attention_tolerance``): f32 within
+#: 2e-5 x max(1, max |want|) (sums in another order); bf16 also 1e-2 x |want|
+#: (one rounding of each output), and for the bf16 flash kernel 2^-7 x
+#: attn(|v|) (P rounded to bf16 before P V, ``flash_tolerance``)
 
 
 def _normal(shape, dev, dtype=torch.float32, seed=0):
@@ -102,12 +101,11 @@ def _normal(shape, dev, dtype=torch.float32, seed=0):
         dev, dtype)
 
 
-def _close(got, want):
+def _close(got, want, tol=None):
     assert got.dtype == want.dtype
-    ref = want.float()
-    tol = ATTN_RTOL[want.dtype] * ref.abs() \
-        + ATTN_ATOL * max(1.0, float(ref.abs().max()))
-    share = float(((got.float() - ref).abs() / tol).max())
+    if tol is None:
+        tol = FA.attention_tolerance(want)
+    share = float(((got.float() - want.float()).abs() / tol).max())
     assert share <= 1.0, share
 
 
@@ -125,7 +123,22 @@ def _close(got, want):
     (1, 128, 4, 2, 64, True, None, torch.float32),
     (2, 100, 15, 5, 64, True, None, torch.float32),
     (1, 1000, 6, 2, 128, True, None, torch.bfloat16),
-    (1, 77, 2, 1, 64, False, 16, torch.float32)])
+    (1, 77, 2, 1, 64, False, 16, torch.float32),
+    # the bf16 tensor-core kernel: head_dim 64 / 128 / 256, S a multiple of
+    # the tile and ragged, windows, non-causal, GQA 15/5
+    (2, 256, 2, 2, 64, True, None, torch.bfloat16),
+    (1, 512, 3, 3, 128, True, None, torch.bfloat16),
+    (1, 256, 2, 1, 256, True, None, torch.bfloat16),
+    (1, 77, 2, 1, 64, True, None, torch.bfloat16),
+    (1, 77, 2, 2, 128, False, None, torch.bfloat16),
+    (1, 1000, 2, 1, 256, True, None, torch.bfloat16),
+    (1, 1000, 15, 5, 64, True, None, torch.bfloat16),
+    (1, 384, 2, 2, 64, True, 100, torch.bfloat16),
+    (1, 384, 2, 2, 128, True, 200, torch.bfloat16),
+    (1, 384, 2, 1, 256, False, 64, torch.bfloat16),
+    (1, 256, 2, 2, 64, False, None, torch.bfloat16),
+    (2, 1024, 15, 5, 64, True, None, torch.bfloat16),
+    (1, 128, 2, 2, 32, True, None, torch.bfloat16)])
 def test_flash_kernel_matches_plain_version(b, s, h, hkv, d, causal, window,
                                             dtype):
     dev = _card()
@@ -136,7 +149,34 @@ def test_flash_kernel_matches_plain_version(b, s, h, hkv, d, causal, window,
     out = FA.flash_mha(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert FA.COUNTS["flash_attention"] == 1
-    _close(out, FA.attention_ref(q, k, v, causal=causal, window=window))
+    want = FA.attention_ref(q, k, v, causal=causal, window=window)
+    _close(out, want, FA.flash_tolerance(q, k, v, want, causal=causal,
+                                         window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bf16_one_hot_probabilities(d):
+    """Each query row's score for one key (a permutation of the rows) is far
+    above the rest, so P is one-hot and the output is that key's v row: a
+    probability that reaches the wrong key (a wrong register layout of the
+    P V operand) shows as an error of order |v|."""
+    dev = _card()
+    b, s, h, hkv = 2, 192, 4, 2
+    k = _normal((b, s, hkv, d), dev, seed=1)
+    v = _normal((b, s, hkv, d), dev, seed=2)
+    perm = torch.from_numpy(np.random.default_rng(4).permutation(s)).to(dev)
+    rep = h // hkv
+    q = 8.0 * k[:, perm].repeat_interleave(rep, dim=2)
+    q, k, v = (x.to(torch.bfloat16).contiguous() for x in (q, k, v))
+    out = FA.flash_mha(q, k, v, causal=False)
+    want = v[:, perm].repeat_interleave(rep, dim=2)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=1e-2)
+    _close(out, FA.attention_ref(q, k, v, causal=False),
+           FA.flash_tolerance(q, k, v, FA.attention_ref(q, k, v,
+                                                        causal=False),
+                              causal=False))
 
 
 @pytest.mark.cuda
@@ -160,6 +200,33 @@ def test_decode_kernel_matches_plain_version(b, t, h, hkv, d, dtype):
     torch.cuda.synchronize()
     assert DA.COUNTS["decode_attention"] == 1
     _close(out[:, 0], DA.decode_attention_ref(q[:, 0], k, v, lens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hkv,d", [
+    (8, 1064, 15, 5, 64), (8, 300, 4, 2, 128), (6, 1000, 8, 1, 256),
+    (8, 130, 2, 2, 32)])
+def test_decode_kernel_at_split_boundaries(b, t, h, hkv, d, dtype):
+    """Lengths 1, 63, 64, 65, 128, T and ones that end inside a chunk, with
+    T not a multiple of the chunk (``split_plan``), in f32 and bf16."""
+    dev = _card()
+    chunk = DA.split_plan(t, b, hkv,
+                          torch.cuda.get_device_properties(dev)
+                          .multi_processor_count)
+    assert t % chunk, (t, chunk)       # the last chunk is ragged
+    q = _normal((b, 1, h, d), dev, dtype, 0)
+    k = _normal((b, t, hkv, d), dev, dtype, 1)
+    v = _normal((b, t, hkv, d), dev, dtype, 2)
+    want_lens = [1, 63, 64, 65, 128, t, chunk + 1, t - 1]
+    lens = torch.tensor([min(x, t) for x in want_lens][:b], dtype=torch.int32,
+                        device=dev)
+    out = DA.decode_mha(q, k, v, lens)
+    torch.cuda.synchronize()
+    want = DA.decode_attention_ref(q[:, 0], k, v, lens)
+    _close(out[:, 0], want)
+    _close(out[:, 0], DA.decode_attention_split_ref(q[:, 0], k, v, lens,
+                                                    chunk))
 
 
 @pytest.mark.cuda
