@@ -8,13 +8,17 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 2. build the three kernels (SDCA, flash attention, decode attention) from
    ``src/repro_torch/kernels/*/csrc`` with nvcc (one process per source,
    started together); print registers, spills and shared memory of the
-   tensor-core flash kernel and the split and merge decode kernels;
+   SDCA kernel, the CUDA-core and tensor-core flash kernels and the split
+   and merge decode kernels;
 3. hold each kernel against its plain PyTorch version on the card: SDCA at
    the MOCHA main path's shapes (Vehicle Sensor: gram mode; Human
-   Activity: carry mode), a forced gram mode, duplicate-heavy streams, and
+   Activity: carry mode), forced modes both ways, budgets that end
+   mid-chunk, n not a multiple of the chunk, d = 3 (mod 4), d 1000 (r
+   wider than the registers), duplicate-heavy streams, and
    budget 0 and mask 0 (exact no-ops); flash and decode at the cases of
    tests/test_kernels.py, a ragged S and T, and SmolLM-360M's shapes, in
-   f32 and bf16; flash bf16 (wgmma + TMA) at head_dim 128 and 256 and with
+   f32 and bf16; flash f32 at every head_dim with a ragged S, windows and
+   GQA; flash bf16 (wgmma + TMA) at head_dim 128 and 256 and with
    one-hot probabilities; decode at lengths on the split's chunk
    boundaries, also against the plain split-and-merge; and decode's slots
    past lengths (bitwise no influence);
@@ -32,9 +36,12 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    plain route swaps the plain versions into
    ``repro_torch.models.layers`` for the comparison); a reduced SmolLM on
    the card against the CPU;
-6. time the SDCA kernel (CUDA events over many launches), its plain
-   version and the wall time per round of both engines; profile three
-   kernel-engine rounds (``torch.profiler``);
+6. time the SDCA kernel (CUDA events over many launches) beside its bound
+   and its chain floor (a model printed on the timing line: chain steps x
+   one dependent step counted from the kernel's instructions at assumed
+   latencies), its plain version and the wall time per
+   round of both engines; profile three kernel-engine rounds
+   (``torch.profiler``);
 7. time flash and decode at SmolLM-360M's shapes (kernel, plain version,
    ``scaled_dot_product_attention``) beside their bounds, with each
    kernel's design and share of the bound; prefill ms and decode ms per
@@ -81,10 +88,12 @@ def card_line() -> str:
 
 
 def kernel_case(spec, *, seed=0, gram=None, dup=False, zero_budget=False,
-                zero_mask=False, device="cuda"):
+                zero_mask=False, mid_chunk=False, device="cuda"):
     """Kernel inputs at a federation's shapes as a MOCHA round makes them:
     the federation's X/y/mask and row norms, a feasible alpha, a small W,
-    one-pass budgets, coordinate streams drawn from the port's PRNG."""
+    one-pass budgets, coordinate streams drawn from the port's PRNG.
+    ``mid_chunk``: budgets of 3/8 of a pass, none a multiple of the
+    chunk."""
     from repro_torch.core.dual import with_xnorm2
     from repro_torch.data.synthetic import make_federation
     from repro_torch.kernels.sdca import draw_coordinates
@@ -106,6 +115,9 @@ def kernel_case(spec, *, seed=0, gram=None, dup=False, zero_budget=False,
     mask = data.mask
     if dup:
         idx = idx % 4
+    if mid_chunk:
+        budgets = (3 * budgets) // 8
+        budgets = budgets + (budgets % 16 == 0).to(budgets.dtype)
     if zero_budget:
         budgets = torch.zeros_like(budgets)
     if zero_mask:
@@ -163,13 +175,14 @@ def ptxas_summary(log):
 
 
 def phase_build():
-    """Build the three sources; print nvcc's log and, for the tensor-core
-    flash kernel and the split and merge decode kernels, registers, spills
-    and the dynamic shared memory a block asks for."""
+    """Build the three sources; print nvcc's log and, for the SDCA kernel,
+    the CUDA-core and tensor-core flash kernels and the split and merge
+    decode kernels, registers, spills and the dynamic shared memory a block
+    asks for."""
     import importlib
     from repro_torch.kernels import build
-    FA, DA = (importlib.import_module(f"repro_torch.kernels.{n}.{n}")
-              for n in ("flash_attention", "decode_attention"))
+    FA, DA, SD = (importlib.import_module(f"repro_torch.kernels.{n}.{n}")
+                  for n in ("flash_attention", "decode_attention", "sdca"))
     t0 = time.perf_counter()
     build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s for "
@@ -179,15 +192,33 @@ def phase_build():
     print(log.strip(), flush=True)
     flash = build.load("flash_attention", FA._bind)
     decode = build.load("decode_attention", DA._bind)
+    sdca = build.load("sdca", SD._bind)
     for fn, r in ptxas_summary(log).items():
-        for kind in ("flash_wgmma_kernel", "decode_split_kernel",
-                     "decode_merge_kernel"):
+        if "sdca_kernel" in fn:
+            from repro_torch.core.subproblem import _solver_plan
+            from repro_torch.data.synthetic import (HUMAN_ACTIVITY,
+                                                    VEHICLE_SENSOR,
+                                                    make_federation)
+            smem = []
+            for spec in (VEHICLE_SENSOR, HUMAN_ACTIVITY):
+                _, n, d = make_federation(spec, seed=0)[0].X.shape
+                gram, C = _solver_plan(d, n)
+                nbytes = sdca.sdca_shared_bytes(n, d, C, int(gram),
+                                                torch.cuda.current_device())
+                smem.append(f"{spec.name} {nbytes} B")
+            print(f"ptxas [sdca_kernel]: {r['registers']} registers, spill "
+                  f"stores {r['spill_stores']} B, spill loads "
+                  f"{r['spill_loads']} B, stack {r['stack']} B, dynamic "
+                  f"shared memory {', '.join(smem)}", flush=True)
+            continue
+        for kind in ("flash_kernel", "flash_wgmma_kernel",
+                     "decode_split_kernel", "decode_merge_kernel"):
             if kind not in fn:
                 continue
             d = int(fn.split(kind)[1].split("Li")[1].split("E")[0])
             dt = 1 if "bfloat16" in fn or kind == "flash_wgmma_kernel" else 0
-            if kind == "flash_wgmma_kernel":
-                smem = flash.flash_attention_shared_bytes(d, 1)
+            if kind.startswith("flash"):
+                smem = flash.flash_attention_shared_bytes(d, dt)
             elif kind == "decode_split_kernel":   # the main path's G, chunk
                 smem = decode.decode_attention_shared_bytes(3, d, 128, dt)
             else:
@@ -208,17 +239,41 @@ def phase_kernels():
                               kernel_case(HUMAN_ACTIVITY), KERNEL_TOL),
     }
     d120 = dataclasses.replace(VEHICLE_SENSOR, name="vs_d120", d=120)
+    ragged = dataclasses.replace(VEHICLE_SENSOR, name="vs_n750",
+                                 n_min=1001, n_max=1001)   # 750 train rows
+    errs["budgets"] = max(
+        check_kernel(f"{spec.name}, budgets ending mid-chunk",
+                     kernel_case(spec, mid_chunk=True), KERNEL_TOL)
+        for spec in (VEHICLE_SENSOR, HUMAN_ACTIVITY, ragged))
     errs["forced"] = max(
         check_kernel("d=120, forced gram", kernel_case(d120, gram=True),
                      KERNEL_TOL),
-        check_kernel("human_activity, forced gram (72 KB shared memory)",
+        check_kernel("human_activity, forced gram (d 561 in gram mode)",
                      kernel_case(HUMAN_ACTIVITY, gram=True), KERNEL_TOL),
         check_kernel("vehicle_sensor, forced carry",
                      kernel_case(VEHICLE_SENSOR, gram=False), KERNEL_TOL))
     errs["duplicates"] = max(
-        check_kernel(f"{spec.name}, duplicate-heavy idx",
-                     kernel_case(spec, dup=True), KERNEL_TOL)
-        for spec in (VEHICLE_SENSOR, HUMAN_ACTIVITY))
+        [check_kernel(f"{spec.name}, duplicate-heavy idx",
+                      kernel_case(spec, dup=True), KERNEL_TOL)
+         for spec in (VEHICLE_SENSOR, HUMAN_ACTIVITY)]
+        + [check_kernel("vehicle_sensor, duplicate-heavy idx, forced carry",
+                        kernel_case(VEHICLE_SENSOR, dup=True, gram=False),
+                        KERNEL_TOL),
+           check_kernel("human_activity, duplicate-heavy idx, forced gram",
+                        kernel_case(HUMAN_ACTIVITY, dup=True, gram=True),
+                        KERNEL_TOL)])
+    # d = 3 (mod 4): a slot of the carry buffer holds rows of different
+    # lengths from chunk to chunk; d 1000: r wider than the registers (carry
+    # with r in shared memory)
+    errs["widths"] = max(
+        check_kernel(label, kernel_case(spec, gram=gram), KERNEL_TOL)
+        for label, spec, gram in (
+            ("d=563, carry", dataclasses.replace(
+                HUMAN_ACTIVITY, name="ha_d563", d=563), None),
+            ("d=99, forced carry", dataclasses.replace(
+                VEHICLE_SENSOR, name="vs_d99", d=99), False),
+            ("d=1000, wide carry", dataclasses.replace(
+                HUMAN_ACTIVITY, name="ha_d1000", d=1000), None)))
     for spec in (VEHICLE_SENSOR, HUMAN_ACTIVITY):
         for kw in ("zero_budget", "zero_mask"):
             check_kernel(f"{spec.name}, {kw} (exact no-op)",
@@ -349,10 +404,42 @@ def bound(case):
                 mode="gram" if gram else "carry")
 
 
+def max_sm_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def chain_floor(mode, d, chain_steps, mhz):
+    """A model, not a measurement: chain steps x one dependent step of the
+    SDCA kernel's chain (csrc/sdca.cu) as counted from its instructions, at
+    assumed Hopper latencies (4 cycles an FP32 add, multiply, FMA, min or
+    max; 23 a shuffle; 46 a shared-memory store and the load of it) and the
+    card's highest SM clock.  Returns (cycles per step, ms).
+
+    Gram: acc += G_ks delta_s, q acc, p + ., y g, 1 - ., the numerator's
+    clamp (2), the division's multiply and two FMAs, abar + step clamped
+    (one saturating add), - abar, * y, * live: 14 FP32, then the shuffle
+    that hands delta on.  Carry: NR / 3 FMAs per accumulator (NR the r
+    registers a lane, three accumulators), two adds, the warp sum (a store,
+    a load, five levels of adds), the same hinge update from y g on, q
+    delta, qd x, r + .: 21 + NR / 3 FP32 and one round trip."""
+    if mode == "gram":
+        cycles = 14 * 4 + 23
+    else:
+        nr = -(-d // 32)
+        nr = -(-nr // 3) * 3   # the kernel's carry_nr(d)
+        cycles = (21 + nr // 3) * 4 + 46
+    return cycles, chain_steps * cycles / (mhz * 1e3)
+
+
 def phase_timing(main, errs):
     from repro_torch.data.synthetic import HUMAN_ACTIVITY, VEHICLE_SENSOR
     from repro_torch.kernels import sdca as K
     card = card_line()
+    mhz = max_sm_mhz()
     shapes = {}
     for label, spec, err in (("vehicle_sensor", VEHICLE_SENSOR, errs["gram"]),
                              ("human_activity", HUMAN_ACTIVITY,
@@ -363,11 +450,16 @@ def phase_timing(main, errs):
         for _ in range(3):
             kernel()
         ms = _events_ms(kernel, 50)
+        device_ms = _device_ms_per_call(lambda c: K.sdca_local_solve(**c),
+                                        [case], 20, ("sdca_kernel",))
         plain()
         plain_ms = _events_ms(plain, 3)
         b = bound(case)
         m, n, d = case["X"].shape
+        step_cycles, floor_ms = chain_floor(b["mode"], d, b["chain_steps"],
+                                            mhz)
         row = dict(shape=f"m={m} n={n} d={d}", mode=b["mode"], ms=ms,
+                   device_ms=device_ms,
                    plain_ms=plain_ms, bound_ms=b["bound_ms"],
                    bound_by=b["bound_by"], bytes=b["bytes"],
                    flops=b["flops"], chain_steps=b["chain_steps"],
@@ -382,10 +474,14 @@ def phase_timing(main, errs):
                 1e3 * wall / ROUNDS)
         shapes[label] = row
         print(f"timing [{label}] {row['shape']} {row['mode']}: kernel "
-              f"{ms:.4f} ms/call, plain {plain_ms:.2f} ms/call, bound "
+              f"{ms:.4f} ms/call (device {device_ms:.4f}), plain "
+              f"{plain_ms:.2f} ms/call, bound "
               f"{b['bound_ms']:.5f} ms ({b['bound_by']}), chain "
               f"{b['chain_steps']} steps -> {row['ns_per_chain_step']:.1f} "
-              f"ns/step; wall/round kernel engine "
+              f"ns/step, chain floor (modelled) {floor_ms:.4f} ms "
+              f"({step_cycles} cycles/step at {mhz:.0f} MHz, "
+              f"{1e3 * step_cycles / mhz:.1f} ns); wall/round kernel "
+              f"engine "
               f"{row['wall_ms_per_round_kernel']:.2f} / "
               f"{row['wall_ms_per_round_repeat'][0]:.2f} ms, local engine "
               f"{row['wall_ms_per_round_local']:.2f} / "
@@ -594,6 +690,13 @@ def phase_attention_kernels():
         flash_case(1, 1000, 6, 2, 128, bf16))
     run("flash", "ragged S 77, non-causal window 16",
         flash_case(1, 77, 2, 1, 64, causal=False, window=16))
+    # the f32 CUDA-core kernel at every head_dim: S not a multiple of its
+    # query or key tiles, windows, GQA, non-causal
+    for d in (32, 64, 128, 256):
+        run("flash", f"f32 d{d} ragged S 333 GQA 6/2 window 100",
+            flash_case(2, 333, 6, 2, d, window=100))
+        run("flash", f"f32 d{d} ragged S 257 GQA 4/1 non-causal",
+            flash_case(1, 257, 4, 1, d, causal=False))
     for dt in (f32, bf16):
         run("flash", f"main path B8 S1024 H15/5 D64 {str(dt)[6:]}",
             flash_case(BATCH, PROMPT, 15, 5, 64, dt))

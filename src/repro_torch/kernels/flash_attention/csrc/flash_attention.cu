@@ -50,21 +50,37 @@
 // named barriers (ping-pong) was slower too; setmaxnreg did not lift
 // ptxas's 168-register budget, so head_dim 256 spills.
 //
-// f32 at every head_dim, and bf16 at head_dim 32 (used by tests only; no
-// config of the port has it): CUDA cores ("cuda-core", flash_kernel
-// below).  TF32 or split-bf16 products would not hold the f32 rule, so f32
-// stays here; it reaches 33% of the FP32 bound.  One block of 256 threads
-// per (query tile of 64 rows, head, batch row); the grid runs the longest
-// causal tiles first.  The block stages its query tile (scaled) and then
-// each 64-key tile of K and V in shared memory as f32, K and Q transposed
-// so that each thread reads four consecutive rows or keys with one 16-byte
-// load.
-// Thread (ty, tx) of the 16 x 16 grid owns a 4 x 4 tile of scores (rows
-// 4ty.., keys 4tx..) and 4 rows x D/16 columns of the accumulator.  The
-// row max and row sum of a tile reduce over the 16 lanes of a row group
-// with shuffles; the tile's probabilities go through shared memory to the
-// P V product.  Key tiles past the query tile (causal) or before its window
-// are skipped; a ragged tail (S not a multiple of 64) is masked.
+// f32 at every head_dim, and bf16 at head_dim 32 (used by tests only; no config
+// of the port has it): CUDA cores ("cuda-core", flash_kernel below).  TF32 or
+// split-bf16 products would not hold the f32 rule, so f32 stays on the FP32
+// pipes, and what bounds the kernel is how many FMAs each shared-memory load
+// feeds and how much of the time the loads, barriers and the softmax leave the
+// FMA pipes idle.  A thread owns an 8 x 4 register tile of scores (4 x 4 at
+// head_dim 256): rows 8ty.., keys tx + 16 j (tx + 8 j at head_dim 256), so 8
+// threads reading 8 keys' rows of K (stride D + 4 floats) hit distinct banks;
+// per 4 columns of the head, 4 16-byte loads of K and 8 of Q feed 128 FMAs, and
+// every float loaded feeds at least 4.  The same thread owns the same 8 rows x
+// D/16 columns of the output: per 4 keys, 8 16-byte loads of P and D/16 of V
+// feed 8 x D/16 x 4 FMAs.  At head_dim 64 (the main path) a block is 128
+// threads over a 64-row query tile of one (head, batch row), and two blocks
+// share an SM (67.5 KB of shared memory each), so one block's softmax and
+// barriers overlap the other's products; head_dim 32 takes 128-row tiles and
+// 256 threads, 128 and 256 take 64-row tiles alone on an SM.  The grid runs the
+// longest causal tiles first.  The query tile is staged once, scaled by
+// 1/sqrt(D) log2(e) and transposed; K and V tiles (64 keys; 32 at head_dim 256)
+// come by cp.async, 16 bytes a copy, keys past S zero-filled, K through a ring
+// of two stages so tile k+1 is in flight while tile k is computed.  At head_dim
+// 64 (the lean layout) V has one stage, loaded as the tile begins and waited
+// for only before P V, and P takes the K stage its tile has consumed (one more
+// barrier per tile); the other head dims keep two V stages and a P buffer.  The
+// online softmax runs in base 2 on ex2 (scores already in log2 units); a row's
+// max reduces over the 16 lanes of its row group with shuffles, its sum stays a
+// per-lane share until the end.  Index masks run only on tiles that cross the
+// causal edge, the window's edge or S; whole tiles past the query tile (causal)
+// or before its window are not loaded.  What holds it back: the f32 FMA pipes
+// issue at about half their rate.  Larger register tiles (8 x 8), a third block
+// per SM, full unrolling and 32-key tiles all measured slower at the main
+// path's shapes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -74,11 +90,8 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 row groups x 16 lanes
-constexpr int kPK = kBK + 4;   // row stride of the probability tile
 constexpr float kNegInf = -1.0e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 // returned by the entry point for a head_dim or dtype it was not built for
 constexpr int kErrUnsupported = -1;
 
@@ -95,192 +108,279 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+// N consecutive elements (N = 2 or 4, N-element aligned) as f32
+template <int N, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  if constexpr (N == 4) {
+    const float4 x = load4(p);
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+  } else if constexpr (sizeof(T) == 4) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    out[0] = x.x; out[1] = x.y;
+  } else {
+    const float2 x =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = x.x; out[1] = x.y;
+  }
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-template <int N>
-__device__ __forceinline__ void load_shared(const float* p, float* out);
-
-template <>
-__device__ __forceinline__ void load_shared<4>(const float* p, float* out) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+// 2^x by the special function unit (2 ulp; 2^-inf = +0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <>
-__device__ __forceinline__ void load_shared<2>(const float* p, float* out) {
-  const float2 x = *reinterpret_cast<const float2*>(p);
-  out[0] = x.x; out[1] = x.y;
-}
+// ---------------------------------------------------------------------------
+// f32 (and bf16 at head_dim 32) on the CUDA cores: register-tiled products
+// fed by a cp.async ring
+// ---------------------------------------------------------------------------
 
-__host__ __device__ constexpr size_t shared_bytes(int D) {
-  // Qs [D][kBQ], Ks [D][kBK], Vs [kBK][D], Ps [kBQ][kPK]
-  return sizeof(float) *
-         ((size_t)D * kBQ + (size_t)D * kBK + (size_t)kBK * D +
-          (size_t)kBQ * kPK);
-}
+// Tiles of the CUDA-core kernel at head_dim D: BQ query rows per block, BK
+// keys per K/V tile, TM rows per thread.  A thread owns TM rows x TN keys of
+// each score tile (keys kl + KL j) and the same TM rows x D / KL columns of
+// the output.  Shared memory: Q^T [D][BQ] f32, a ring of two K [BK][LDK]
+// tiles and one or two V [BK][D] tiles in the input's type, and P [BQ][LDP]
+// f32, which in the lean layout (LEAN: two blocks to an SM at head_dim 64)
+// takes the K stage its tile has consumed.
+template <typename T, int D>
+struct CcShape {
+  static constexpr int BQ = D <= 32 ? 128 : 64;
+  static constexpr int BK = D <= 128 ? 64 : 32;
+  static constexpr int TM = D <= 128 ? 8 : 4;
+  static constexpr int TN = 4;                     // keys per thread
+  static constexpr int MIN_BLOCKS = D == 64 ? 2 : 1;   // per SM
+  static constexpr bool LEAN = D == 64;
+  static constexpr int KL = BK / TN;               // key lanes of a row group
+  static constexpr int THREADS = KL * (BQ / TM);
+  static constexpr int NCOL = D / KL;              // output columns a thread
+  static constexpr int VEC = NCOL < 4 ? NCOL : 4;
+  static constexpr int NCH = NCOL / VEC;
+  static constexpr int EPC = 16 / sizeof(T);       // elements per 16 bytes
+  static constexpr int LDK = D + EPC;              // 16-byte rows, odd quads
+  static constexpr int LDP = BK + 4;
+  static constexpr int CPR = D / EPC;              // 16-byte copies per row
+  static constexpr size_t K_OFF = sizeof(float) * D * BQ;
+  static constexpr size_t K_STAGE = sizeof(T) * BK * LDK;
+  static constexpr size_t V_OFF = K_OFF + 2 * K_STAGE;
+  static constexpr size_t V_STAGE = sizeof(T) * BK * D;
+  static constexpr size_t P_OFF = V_OFF + (LEAN ? 1 : 2) * V_STAGE;
+  static constexpr size_t SMEM =
+      P_OFF + (LEAN ? 0 : sizeof(float) * BQ * LDP);
+  static_assert(D % 32 == 0 && NCH >= 1 && TM % 4 == 0, "head_dim 32, 64, ..");
+  static_assert(!LEAN || sizeof(float) * BQ * LDP <= K_STAGE,
+                "P must fit in a K stage");
+};
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(CcShape<T, D>::THREADS,
+                                  CcShape<T, D>::MIN_BLOCKS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int S, int H,
-             int Hkv, int causal, int window, float scale) {
-  constexpr int VEC = D >= 64 ? 4 : 2;   // accumulator columns per load
-  constexpr int NCH = D / (16 * VEC);    // loads per accumulator row
-  constexpr int NACC = NCH * VEC;        // = D / 16
-  constexpr int DC = D / 4;              // 4-element chunks of a row
-  static_assert(D % 32 == 0 && NCH >= 1, "head_dim must be 32, 64, ...");
+             int Hkv, int causal, int window, float scale_log2) {
+  using C = CcShape<T, D>;
+  constexpr int BQ = C::BQ, BK = C::BK, TM = C::TM, TN = C::TN, KL = C::KL;
+  constexpr int NCOL = C::NCOL, VEC = C::VEC, EPC = C::EPC;
+  constexpr int LDK = C::LDK, LDP = C::LDP, CPR = C::CPR, NT = C::THREADS;
+  constexpr bool LEAN = C::LEAN;
 
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + D * kBQ;
-  float* Vs = Ks + D * kBK;
-  float* Ps = Vs + kBK * D;
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* Qs = reinterpret_cast<float*>(smem);
+  T* Ks = reinterpret_cast<T*>(smem + C::K_OFF);
+  T* Vs = reinterpret_cast<T*>(smem + C::V_OFF);
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, kl = tid % KL, r0 = (tid / KL) * TM;
   const size_t qrow = (size_t)H * D, krow = (size_t)Hkv * D;
   const T* qb = q + (size_t)b * S * qrow + (size_t)h * D;
   const T* kb = k + (size_t)b * S * krow + (size_t)hk * D;
   const T* vb = v + (size_t)b * S * krow + (size_t)hk * D;
 
-  for (int i = tid; i < kBQ * DC; i += kThreads) {
-    const int r = i % kBQ, c = i / kBQ;
+  // key tiles that hold a live key for some row of this query tile
+  const int n_tiles = (S + BK - 1) / BK;
+  int kt_end = n_tiles;
+  if (causal) kt_end = min(n_tiles, (min(q0 + BQ, S) - 1) / BK + 1);
+  int kt_begin = 0;
+  if (window > 0) kt_begin = max(0, q0 - window + 1) / BK;
+
+  // rows of key tile kt of k or v into dst (row stride ld); keys past S
+  // are zeros
+  auto load_tile = [&](const T* src, T* dst, int ld, int kt) {
+    const int k0 = kt * BK;
+    for (int e = tid; e < BK * CPR; e += NT) {
+      const int j = e / CPR, c = e % CPR;
+      const bool in = k0 + j < S;
+      hopper::cp_async16(dst + j * ld + c * EPC,
+                         src + (size_t)(in ? k0 + j : 0) * krow + c * EPC,
+                         in ? 16 : 0);
+    }
+  };
+  if (kt_begin < kt_end) {
+    load_tile(kb, Ks, LDK, kt_begin);
+    if (!LEAN) load_tile(vb, Vs, D, kt_begin);
+  }
+  hopper::cp_async_commit();
+
+  // the query tile, scaled by 1/sqrt(D) log2(e) so that the softmax is in
+  // base 2, transposed so a thread reads 4 of its rows with one load
+  for (int i = tid; i < BQ * (D / 4); i += NT) {
+    const int r = i % BQ, c = i / BQ;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < S) x = load4(qb + (size_t)(q0 + r) * qrow + 4 * c);
-    Qs[(4 * c + 0) * kBQ + r] = x.x * scale;
-    Qs[(4 * c + 1) * kBQ + r] = x.y * scale;
-    Qs[(4 * c + 2) * kBQ + r] = x.z * scale;
-    Qs[(4 * c + 3) * kBQ + r] = x.w * scale;
+    Qs[(4 * c + 0) * BQ + r] = x.x * scale_log2;
+    Qs[(4 * c + 1) * BQ + r] = x.y * scale_log2;
+    Qs[(4 * c + 2) * BQ + r] = x.z * scale_log2;
+    Qs[(4 * c + 3) * BQ + r] = x.w * scale_log2;
   }
 
-  // key tiles that hold a live key for some row of this query tile
-  const int n_tiles = (S + kBK - 1) / kBK;
-  int kt_end = n_tiles;
-  if (causal) kt_end = min(n_tiles, (min(q0 + kBQ, S) - 1) / kBK + 1);
-  int kt_begin = 0;
-  if (window > 0) kt_begin = max(0, q0 - window + 1) / kBK;
-
-  float m[4], l[4], acc[4][NACC];
+  float m[TM], l[TM], acc[TM][NCOL];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < TM; ++i) {
     m[i] = kNegInf;
-    l[i] = 0.f;
+    l[i] = 0.f;   // this lane's share of the row sum
 #pragma unroll
-    for (int c = 0; c < NACC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < NCOL; ++c) acc[i][c] = 0.f;
   }
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
-    // the last tile's Ks, Vs and Ps have been read
+    const int st = (kt - kt_begin) & 1, k0 = kt * BK;
+    T* k_st = Ks + st * BK * LDK;
+    const T* v_st = Vs + (LEAN ? 0 : st * BK * D);
+    float* Ps = reinterpret_cast<float*>(LEAN ? reinterpret_cast<char*>(k_st)
+                                              : smem + C::P_OFF);
+    hopper::cp_async_wait<0>();
+    // tile kt's K (and V) and the query tile are in, and every thread is
+    // past the last tile's P V: the other stages may be overwritten
     __syncthreads();
-    for (int i = tid; i < kBK * DC; i += kThreads) {
-      const int j = i % kBK, c = i / kBK;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + j < S) x = load4(kb + (size_t)(k0 + j) * krow + 4 * c);
-      Ks[(4 * c + 0) * kBK + j] = x.x;
-      Ks[(4 * c + 1) * kBK + j] = x.y;
-      Ks[(4 * c + 2) * kBK + j] = x.z;
-      Ks[(4 * c + 3) * kBK + j] = x.w;
+    if (LEAN) {
+      load_tile(vb, Vs, D, kt);
+      hopper::cp_async_commit();
     }
-    for (int i = tid; i < kBK * DC; i += kThreads) {
-      const int j = i / DC, c = i % DC;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + j < S) x = load4(vb + (size_t)(k0 + j) * krow + 4 * c);
-      *reinterpret_cast<float4*>(Vs + j * D + 4 * c) = x;
+    if (kt + 1 < kt_end) {
+      load_tile(kb, Ks + (st ^ 1) * BK * LDK, LDK, kt + 1);
+      if (!LEAN) load_tile(vb, Vs + (st ^ 1) * BK * D, D, kt + 1);
     }
-    __syncthreads();
+    hopper::cp_async_commit();
 
-    float s[4][4];
+    // S = Q K^T: per 4 columns of the head, 4 16-byte loads of K and TM / 4
+    // of Q for each column feed TM x 4 x 4 FMAs
+    float s[TM][TN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], kk[4];
-      load_shared<4>(Qs + d * kBQ + ty * 4, a);
-      load_shared<4>(Ks + d * kBK + tx * 4, kk);
+      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int d0 = 0; d0 < D; d0 += 4) {
+      float kv[TN][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < TN; ++j)
+        load_vec<4>(k_st + (kl + KL * j) * LDK + d0, kv[j]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+      for (int dd = 0; dd < 4; ++dd) {
+        float qv[TM];
+#pragma unroll
+        for (int i = 0; i < TM; i += 4)
+          load_vec<4>(Qs + (d0 + dd) * BQ + r0 + i, qv + i);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            s[i][j] = fmaf(qv[i], kv[j][dd], s[i][j]);
+      }
     }
 
-    // online softmax, row by row; a row group is 16 lanes of one warp
+    // online softmax in base 2; index masks only on a tile that crosses the
+    // causal edge, the window's edge or S
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      bool live[4];
+    for (int i = 0; i < TM; ++i) {
+      const int row = q0 + r0 + i;
+      bool live[TN];
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx * 4 + j;
-        live[j] = key < S && (!causal || key <= row) &&
-                  (window <= 0 || key > row - window);
+      for (int j = 0; j < TN; ++j) {
+        const int key = k0 + kl + KL * j;
+        live[j] = !edge || (key < S && (!causal || key <= row) &&
+                            (window <= 0 || key > row - window));
         if (live[j]) mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int off = KL / 2; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float p[4], sum = 0.f;
+      const float alpha = ex2(m[i] - m_new);
+      float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[j] = live[j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += p[j];
+      for (int j = 0; j < TN; ++j) {
+        s[i][j] = live[j] ? ex2(s[i][j] - m_new) : 0.f;
+        sum += s[i][j];
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = alpha * l[i] + sum;
+      l[i] = l[i] * alpha + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < NACC; ++c) acc[i][c] *= alpha;
-      *reinterpret_cast<float4*>(Ps + (ty * 4 + i) * kPK + tx * 4) =
-          make_float4(p[0], p[1], p[2], p[3]);
+      for (int c = 0; c < NCOL; ++c) acc[i][c] *= alpha;
     }
+    // the lean layout writes P over this tile's K: every thread has read it
+    if (LEAN) __syncthreads();
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) Ps[(r0 + i) * LDP + kl + KL * j] = s[i][j];
+    // the lean layout's V of this tile has landed (K of the next may not)
+    if (LEAN) hopper::cp_async_wait<1>();
     __syncthreads();
 
-    // acc += P V over the tile's keys
-    for (int j = 0; j < kBK; j += 4) {
-      float pr[4][4];
+    // acc += P V: per 4 keys, TM 16-byte loads of P and 4 x NCOL / VEC of V
+    // feed TM x NCOL x 4 FMAs
+#pragma unroll 2
+    for (int j0 = 0; j0 < BK; j0 += 4) {
+      float pr[TM][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        load_shared<4>(Ps + (ty * 4 + i) * kPK + j, pr[i]);
+      for (int i = 0; i < TM; ++i)
+        load_vec<4>(Ps + (r0 + i) * LDP + j0, pr[i]);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        float vv[NACC];
+        float vv[NCOL];
 #pragma unroll
-        for (int c = 0; c < NCH; ++c)
-          load_shared<VEC>(Vs + (j + jj) * D + c * 16 * VEC + tx * VEC,
-                           vv + c * VEC);
+        for (int c = 0; c < C::NCH; ++c)
+          load_vec<VEC>(v_st + (j0 + jj) * D + (c * KL + kl) * VEC,
+                        vv + c * VEC);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < TM; ++i)
 #pragma unroll
-          for (int c = 0; c < NACC; ++c)
+          for (int c = 0; c < NCOL; ++c)
             acc[i][c] = fmaf(pr[i][jj], vv[c], acc[i][c]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int off = KL / 2; off > 0; off >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = q0 + r0 + i;
     if (row >= S) continue;
     const float den = fmaxf(l[i], 1e-20f);
     T* out = o + ((size_t)b * S + row) * qrow + (size_t)h * D;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c)
+    for (int c = 0; c < C::NCH; ++c)
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        store(out + c * 16 * VEC + tx * VEC + e, acc[i][c * VEC + e] / den);
+        store(out + (c * KL + kl) * VEC + e, acc[i][c * VEC + e] / den);
   }
 }
 
@@ -288,34 +388,33 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int H, int Hkv, int causal, int window, float scale,
            cudaStream_t stream) {
-  const size_t bytes = shared_bytes(D);
-  int err = hopper::allow_shared<flash_kernel<T, D>>((int)bytes);
+  using C = CcShape<T, D>;
+  int err = hopper::allow_shared<flash_kernel<T, D>>((int)C::SMEM);
   if (err != 0) return err;
   if (B == 0 || S == 0 || H == 0) return 0;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid((S + C::BQ - 1) / C::BQ, H, B);
+  flash_kernel<T, D><<<grid, C::THREADS, C::SMEM, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, Hkv, causal,
-      window, scale);
+      window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(int D, const void* q, const void* k, const void* v, void* o,
              int B, int S, int H, int Hkv, int causal, int window,
              float scale, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, S, H, Hkv, causal, window, scale,
-                           stream);
+      return launch<float, 32>(q, k, v, o, B, S, H, Hkv, causal, window,
+                               scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, S, H, Hkv, causal, window, scale,
-                           stream);
+      return launch<float, 64>(q, k, v, o, B, S, H, Hkv, causal, window,
+                               scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, S, H, Hkv, causal, window, scale,
-                            stream);
+      return launch<float, 128>(q, k, v, o, B, S, H, Hkv, causal, window,
+                                scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, S, H, Hkv, causal, window, scale,
-                            stream);
+      return launch<float, 256>(q, k, v, o, B, S, H, Hkv, causal, window,
+                                scale, stream);
     default:
       return kErrUnsupported;
   }
@@ -329,7 +428,6 @@ constexpr int kTcRows = 128;                  // query rows per block
 constexpr int kTcConsumers = 256;             // two consumer warpgroups
 constexpr int kTcThreads = kTcConsumers + 32; // and one producer warp
 constexpr int kAtomBytes = 128;               // a swizzle atom's row: 64 bf16
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct TcShape {
@@ -346,12 +444,6 @@ struct TcShape {
                               BAR_BYTES;
 };
 
-// 2^x by the special function unit (2 ulp; 2^-inf = +0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
@@ -656,9 +748,15 @@ long long flash_attention_shared_bytes(int D, int dtype) {
   if (dtype == 1 && D == 64) return TcShape<64>::SMEM;
   if (dtype == 1 && D == 128) return TcShape<128>::SMEM;
   if (dtype == 1 && D == 256) return TcShape<256>::SMEM;
-  if (D == 32 || D == 64 || D == 128 || D == 256)
-    return (long long)shared_bytes(D);
-  return -1;
+  if (dtype == 1 && D == 32) return CcShape<__nv_bfloat16, 32>::SMEM;
+  if (dtype != 0) return -1;
+  switch (D) {
+    case 32: return CcShape<float, 32>::SMEM;
+    case 64: return CcShape<float, 64>::SMEM;
+    case 128: return CcShape<float, 128>::SMEM;
+    case 256: return CcShape<float, 256>::SMEM;
+    default: return -1;
+  }
 }
 
 // Launches the kernel on `stream`: bf16 at head_dim 64, 128 or 256 on the
@@ -674,11 +772,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (err != 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch<float>(D, q, k, v, o, B, S, H, Hkv, causal, window,
-                           scale, s);
+    return dispatch(D, q, k, v, o, B, S, H, Hkv, causal, window, scale, s);
   if (dtype == 1 && D == 32)
-    return dispatch<__nv_bfloat16>(D, q, k, v, o, B, S, H, Hkv, causal,
-                                   window, scale, s);
+    return launch<__nv_bfloat16, 32>(q, k, v, o, B, S, H, Hkv, causal,
+                                     window, scale, s);
   if (dtype == 1)
     return dispatch_wgmma(D, q, k, v, o, B, S, H, Hkv, causal, window, scale,
                           s);

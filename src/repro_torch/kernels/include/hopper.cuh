@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tile loads, wgmma descriptors and instructions, and the host-side
-// encoding of tensor maps.
+// TMA tile loads, cp.async copies, wgmma descriptors and instructions, and
+// the host-side encoding of tensor maps.
 //
 // cuTensorMapEncodeTiled is a driver-API function.  The kernels' libraries
 // link only the CUDA runtime, so it is looked up once through the runtime's
@@ -104,6 +104,40 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: each thread copies 4 or 16 bytes from global to shared memory
+// without passing through registers; a thread's copies complete in commit
+// groups, and a barrier after the wait makes them visible to the block.
+// ---------------------------------------------------------------------------
+
+// 16 bytes (both addresses 16-byte aligned), of which the first
+// `src_bytes` are read from src and the rest written as zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes (both addresses 4-byte aligned)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's commit groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------

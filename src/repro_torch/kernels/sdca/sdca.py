@@ -3,8 +3,9 @@
 ``sdca_local_solve`` is the counterpart of the JAX package's Pallas call of
 the same name (``repro/kernels/sdca/sdca.py``): the batched hinge-SDCA local
 solve, one task per thread block.  The chunk plan (residual mode, chunk
-width, the padded index layout) comes from ``repro_torch.core.subproblem``,
-as the plain version's does.
+width) comes from ``repro_torch.core.subproblem``, as the plain version's
+does; the kernel pads the stream's last chunk (``chunk_idx_stream``'s
+layout) and clamps the budgets to ``max_steps`` itself.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version (``ref.sdca_ref``).  Each launch adds one to
@@ -17,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.subproblem import _solver_plan, chunk_idx_stream, row_norms
+from repro_torch.core.subproblem import _solver_plan, row_norms
 from repro_torch.kernels.build import check_operand, load
 from repro_torch.kernels.sdca.ref import sdca_ref
 
@@ -38,7 +39,7 @@ def _bind(lib) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.sdca_local_solve.argtypes = [P] * 11 + [I] * 7 + [P]
     lib.sdca_local_solve.restype = I
-    lib.sdca_shared_bytes.argtypes = [I] * 4
+    lib.sdca_shared_bytes.argtypes = [I] * 5
     lib.sdca_shared_bytes.restype = ctypes.c_longlong
     lib.sdca_shared_limit.argtypes = [I]
     lib.sdca_shared_limit.restype = ctypes.c_longlong
@@ -83,10 +84,10 @@ def sdca_local_solve(X: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     gram, C = _solver_plan(d, max_steps, gram)
     if gram and C > _GRAM_LANES:
         raise ValueError(f"gram mode takes chunks of at most {_GRAM_LANES}")
-    # padded steps sit at or past max_steps >= the clamped budget: dead
-    budgets = torch.clamp_max(budgets, max_steps).to(torch.int32)
-    idx_c = chunk_idx_stream(idx.to(torch.int32), max_steps, C).contiguous()
-    n_chunks = idx_c.shape[1]
+    # the kernel clamps the budgets to max_steps and pads the last chunk
+    # (chunk_idx_stream's layout) itself: the padded steps are dead
+    budgets = budgets.to(torch.int32)
+    idx_c = idx.to(torch.int32)
     dalpha = torch.empty((m, n), dtype=f32, device=dev)
     u = torch.empty((m, d), dtype=f32, device=dev)
 
@@ -95,13 +96,14 @@ def sdca_local_solve(X: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
         X.data_ptr(), y.data_ptr(), mask.data_ptr(), alpha.data_ptr(),
         W.data_ptr(), xnorm2.data_ptr(), idx_c.data_ptr(), q_t.data_ptr(),
         budgets.data_ptr(), dalpha.data_ptr(), u.data_ptr(),
-        m, n, d, n_chunks, C, int(gram), dev.index,
+        m, n, d, max_steps, C, int(gram), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc == _ERR_SHARED_MEMORY:
+        nbytes = lib.sdca_shared_bytes(n, d, C, int(gram), dev.index)
         raise ValueError(
-            f"SDCA kernel needs {lib.sdca_shared_bytes(n, d, C, int(gram))} "
-            f"bytes of shared memory per block at n={n}, d={d}, C={C}; the "
-            f"device allows {lib.sdca_shared_limit(dev.index)}")
+            f"SDCA kernel needs {nbytes} bytes of shared memory per block at "
+            f"n={n}, d={d}, C={C}; the device allows "
+            f"{lib.sdca_shared_limit(dev.index)}")
     if rc != 0:
         raise RuntimeError(f"SDCA kernel launch failed: CUDA error {rc}")
     COUNTS["sdca_local_solve"] += 1

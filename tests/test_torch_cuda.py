@@ -40,7 +40,8 @@ def _inputs(m, n, d, steps, dev, seed=0):
 @pytest.mark.parametrize("m,n,d,steps,gram", [
     (3, 16, 8, 32, None), (4, 32, 100, 64, None), (2, 48, 150, 64, None),
     (2, 40, 120, 96, True), (2, 300, 561, 300, None),
-    (2, 300, 561, 300, True)])
+    (2, 300, 561, 300, True), (4, 64, 100, 64, False),
+    (3, 20, 8, 5, None), (2, 20, 700, 9, None)])
 def test_kernel_matches_plain_version(m, n, d, steps, gram):
     """Kernel against its plain version on the same inputs, the launch
     counted.  The reductions run in another order: atol 1e-5 on dalpha
@@ -58,6 +59,85 @@ def test_kernel_matches_plain_version(m, n, d, steps, gram):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d,steps,gram,budgets,dup", [
+    # budgets that end inside a chunk (C 32 gram, 16 and 64 carry)
+    (3, 100, 100, 100, None, [45, 77, 1], None),
+    (3, 90, 180, 90, None, [17, 40, 89], None),
+    (2, 300, 561, 300, None, [65, 130], None),
+    # n not a multiple of C; d 561 is not a multiple of 4
+    (2, 301, 561, 301, True, [301, 150], None),
+    (3, 77, 100, 77, False, [77, 50, 20], None),
+    # duplicate-heavy streams: a coordinate repeated inside one chunk and
+    # across chunks, in both modes and with a forced mode each way
+    (3, 100, 100, 100, None, None, 3),
+    (2, 300, 561, 300, None, None, 5),
+    (2, 300, 561, 300, True, None, 2),
+    (3, 100, 100, 100, False, None, 7),
+    # d = 3 (mod 4): rows of one chunk start at all four shifts, so a slot
+    # holds rows of different lengths from chunk to chunk (carry at C 64,
+    # and forced carry at C 16)
+    (2, 300, 563, 300, None, None, None),
+    (3, 200, 99, 200, False, [200, 131, 77], None),
+    # r wider than the registers (d > 864), and a chunk's rows beyond the
+    # shared memory (d 800 at n 1200): carry with r in shared memory
+    (2, 300, 1000, 300, None, [300, 170], None),
+    (2, 300, 1000, 300, None, None, 5),
+    (1, 1200, 800, 300, None, None, None)])
+def test_sdca_kernel_budgets_widths_and_duplicates(m, n, d, steps, gram,
+                                                    budgets, dup):
+    """Kernel against its plain version where the redesign's bookkeeping
+    matters: a budget that ends mid-chunk, ragged n and d, and streams that
+    repeat a coordinate (the running dalpha each step reads)."""
+    dev = _card()
+    a = _inputs(m, n, d, steps, dev, seed=4)
+    if budgets is not None:
+        a[6] = torch.tensor(budgets, dtype=torch.int32, device=dev)
+    else:
+        a[6] = torch.full((m,), steps, dtype=torch.int32, device=dev)
+    if dup is not None:
+        a[7] = a[7] % dup
+    xn = row_norms(a[0])
+    da, u = K.sdca_local_solve(*a, steps, gram=gram, xnorm2=xn)
+    torch.cuda.synchronize()
+    dr, ur = K.sdca_ref(*a, gram=gram, xnorm2=xn)
+    torch.testing.assert_close(da, dr, atol=1e-5, rtol=0)
+    torch.testing.assert_close(u, ur, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vehicle_sensor", "human_activity"])
+def test_sdca_kernel_at_federation_shapes(name):
+    """The MOCHA main path's shapes (Vehicle Sensor: gram, Human Activity:
+    carry) with one-pass budgets and a feasible alpha, against the plain
+    version within 2e-5 x max(1, max |plain|) (chip_smoke's KERNEL_TOL)."""
+    from repro_torch.core.dual import with_xnorm2
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.sdca import draw_coordinates
+    from repro_torch.utils import prng
+    dev = _card()
+    spec = getattr(synthetic, name.upper())
+    data = with_xnorm2(synthetic.make_federation(spec, seed=0,
+                                                 device=dev)[0])
+    m, n, d = data.X.shape
+    rng = np.random.default_rng(1)
+    alpha = data.y * data.mask * torch.from_numpy(
+        rng.uniform(0, 1, (m, n)).astype(np.float32)).to(dev)
+    W = torch.from_numpy((0.1 * rng.normal(size=(m, d))).astype(
+        np.float32)).to(dev)
+    q = torch.from_numpy(rng.uniform(0.5, 2.0, m).astype(np.float32)).to(dev)
+    budgets = torch.round(data.n_t).to(torch.int32)
+    idx = draw_coordinates(prng.split(prng.PRNGKey(1, device=dev), m),
+                           data.n_t, n, n)
+    args = (data.X, data.y, data.mask, alpha.contiguous(), W, q, budgets, idx)
+    da, u = K.sdca_local_solve(*args, n, xnorm2=data.xnorm2)
+    dr, ur = K.sdca_ref(*args, xnorm2=data.xnorm2)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(dr.abs().max()), float(ur.abs().max()))
+    err = max(float((da - dr).abs().max()), float((u - ur).abs().max()))
+    assert err <= 2e-5 * scale, (err, scale)
+
+
+@pytest.mark.cuda
 def test_kernel_budget_zero_and_mask_zero_are_exact_noops():
     dev = _card()
     a = _inputs(3, 64, 100, 64, dev, seed=1)
@@ -66,6 +146,26 @@ def test_kernel_budget_zero_and_mask_zero_are_exact_noops():
         b[i] = zero
         da, u = K.sdca_local_solve(*b, 64)
         assert not torch.any(da) and not torch.any(u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,gram", [(100, None), (563, None), (1000, None),
+                                    (100, False)])
+def test_sdca_kernel_takes_an_unaligned_x(d, gram):
+    """X a contiguous view one float into its storage: no row starts on a
+    16-byte boundary the kernel could assume."""
+    dev = _card()
+    m, n, steps = 2, 120, 120
+    a = _inputs(m, n, d, steps, dev, seed=6)
+    storage = torch.empty(m * n * d + 1, device=dev)
+    a[0] = storage[1:].view(m, n, d).copy_(a[0])
+    assert a[0].data_ptr() % 16
+    xn = row_norms(a[0])
+    da, u = K.sdca_local_solve(*a, steps, gram=gram, xnorm2=xn)
+    torch.cuda.synchronize()
+    dr, ur = K.sdca_ref(*a, gram=gram, xnorm2=xn)
+    torch.testing.assert_close(da, dr, atol=1e-5, rtol=0)
+    torch.testing.assert_close(u, ur, atol=1e-5, rtol=0)
 
 
 @pytest.mark.cuda
@@ -138,7 +238,18 @@ def _close(got, want, tol=None):
     (1, 384, 2, 1, 256, False, 64, torch.bfloat16),
     (1, 256, 2, 2, 64, False, None, torch.bfloat16),
     (2, 1024, 15, 5, 64, True, None, torch.bfloat16),
-    (1, 128, 2, 2, 32, True, None, torch.bfloat16)])
+    (1, 128, 2, 2, 32, True, None, torch.bfloat16),
+    # the f32 CUDA-core kernel: S not a multiple of its 128- or 64-row query
+    # tiles and 64- or 32-key tiles, windows, GQA, every head_dim
+    (2, 333, 6, 2, 32, True, 100, torch.float32),
+    (2, 333, 6, 2, 64, True, 100, torch.float32),
+    (1, 333, 6, 3, 128, True, 70, torch.float32),
+    (1, 333, 4, 2, 256, True, 50, torch.float32),
+    (1, 200, 4, 1, 64, False, 64, torch.float32),
+    (1, 1000, 15, 5, 64, True, None, torch.float32),
+    (1, 257, 4, 2, 128, False, None, torch.float32),
+    (1, 257, 2, 1, 256, True, None, torch.float32),
+    (1, 333, 6, 2, 32, True, 100, torch.bfloat16)])
 def test_flash_kernel_matches_plain_version(b, s, h, hkv, d, causal, window,
                                             dtype):
     dev = _card()

@@ -19,7 +19,8 @@ from repro.kernels.sdca.ops import draw_coordinates as jax_draw
 from repro.kernels.sdca.ref import sdca_ref as jax_sdca_ref
 from repro_torch.core.dual import with_xnorm2
 from repro_torch.core.losses import HINGE, SQUARED
-from repro_torch.core.subproblem import batched_local_sdca
+from repro_torch.core.subproblem import (_solver_plan, batched_local_sdca,
+                                         chunk_idx_stream)
 from repro_torch.data.synthetic import tiny_problem
 from repro_torch.kernels import sdca as K
 from repro_torch.utils import prng
@@ -123,3 +124,83 @@ def test_kernel_engine_is_hinge_only():
     with pytest.raises(ValueError, match="hinge"):
         KernelEngine().setup(train, SQUARED, 10)
 
+
+
+# ---------------------------------------------------------------------------
+# The card kernel's gram recurrence, modelled lane by lane on the CPU
+# ---------------------------------------------------------------------------
+
+def _fma(a, b, c):
+    """fmaf in f32: the f64 product of two f32 values is exact, so one f32
+    rounding of the f64 sum matches the card's fused multiply-add (up to a
+    double rounding of the sum, which these sizes do not meet)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _gram_lane_model(X, y, mask, alpha, W, q, budget, idx, max_steps, xn):
+    """One task through the recurrence of ``csrc/sdca.cu``'s gram mode.
+
+    Lane k of the chain warp owns step k of a chunk: it keeps
+    ``acc_k = sum_{j<k} G_kj delta_j`` (one fused multiply-add after each
+    step, in step order) and its coordinate's running dalpha, to which it
+    adds the deltas of the earlier lanes with the same coordinate; at step
+    k it forms g_k = p_k + q acc_k and its delta, which every lane then
+    sees.  dalpha is written back once per coordinate by its last lane."""
+    n, d = X.shape
+    _, C = _solver_plan(d, max_steps, True)
+    chunks = chunk_idx_stream(idx.long(), max_steps, C)
+    budget = min(int(budget), max_steps)
+    live_chunks = 0 if budget <= 0 else min(chunks.shape[0], -(-budget // C))
+    dalpha = torch.zeros(n)
+    u, r = torch.zeros(d), W.clone()
+    for c in range(live_chunks):
+        ic = chunks[c].tolist()
+        Xc = X[ic]
+        G, p = Xc @ Xc.T, Xc @ r
+        da = [dalpha[i].clone() for i in ic]     # lane k's running dalpha
+        acc = torch.zeros(C)
+        deltas = torch.zeros(C)
+        for s, i in enumerate(ic):
+            g = p[s] + q * acc[s]
+            live = float(c * C + s < budget and mask[i] > 0)
+            delta = HINGE.sdca_delta(alpha[i] + da[s], y[i], g,
+                                     q * xn[i]) * live
+            deltas[s] = delta
+            acc = _fma(G[:, s], delta.expand(C), acc)
+            for k in range(s + 1, C):
+                if ic[k] == i:
+                    da[k] = da[k] + delta
+        for k, i in enumerate(ic):
+            if i not in ic[k + 1:]:
+                dalpha[i] = da[k] + deltas[k]
+        colsum = torch.sum(Xc * deltas[:, None], dim=0)
+        u, r = u + colsum, r + q * colsum
+    return dalpha, u
+
+
+@pytest.mark.parametrize("m,n,d,steps,dup", [
+    (3, 16, 8, 32, 3), (2, 40, 100, 70, 5), (3, 50, 20, 100, None),
+    (2, 30, 12, 5, 2), (2, 90, 64, 90, 11)])
+def test_gram_lane_model_matches_plain_version(m, n, d, steps, dup):
+    """The lane-by-lane recurrence gives the plain version's solve: each
+    step's g from a running per-lane sum instead of a fresh dot with the
+    chunk's deltas, and repeated coordinates resolved in step order.  The
+    streams repeat coordinates inside chunks and across them (``dup``) and
+    budgets end mid-chunk.  The g sums are associated differently: atol
+    1e-5 on dalpha (bounded by 1) and u."""
+    X, y, mask, alpha, W, q, budgets, idx, xn = (
+        torch.from_numpy(v) for v in _inputs(m, n, d, steps, seed=5))
+    if dup is not None:
+        idx = idx % dup
+        chunk = _solver_plan(d, steps, True)[1]
+        assert any(len(set(c)) < len(c) for c in chunk_idx_stream(
+            idx.long(), steps, chunk)[0].tolist())
+    alpha = y * mask * torch.rand(m, n, generator=torch.Generator()
+                                  .manual_seed(0))
+    dr, ur = K.sdca_ref(X, y, mask, alpha, W, q, budgets, idx, gram=True,
+                        xnorm2=xn)
+    for t in range(m):
+        dm, um = _gram_lane_model(X[t], y[t], mask[t], alpha[t], W[t], q[t],
+                                  budgets[t], idx[t], steps, xn[t])
+        torch.testing.assert_close(dm, dr[t], atol=1e-5, rtol=0)
+        torch.testing.assert_close(um, ur[t], atol=1e-5, rtol=0)
