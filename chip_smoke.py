@@ -14,7 +14,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    the MOCHA main path's shapes (Vehicle Sensor: gram mode; Human
    Activity: carry mode), forced modes both ways, budgets that end
    mid-chunk, n not a multiple of the chunk, d = 3 (mod 4), d 1000 (r
-   wider than the registers), duplicate-heavy streams, and
+   wider than the registers), duplicate-heavy streams, the "global"
+   kind's one pooled task of every Vehicle Sensor client's rows (one pass
+   and budgets ending mid-chunk), and
    budget 0 and mask 0 (exact no-ops); flash and decode at the cases of
    tests/test_kernels.py, a ragged S and T, and SmolLM-360M's shapes, in
    f32 and bf16; flash f32 at every head_dim with a ragged S, windows and
@@ -25,9 +27,19 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 4. the MOCHA main path: full-size experiments through
    ``repro_torch.api.Experiment.run`` with ``engine="kernel"``, every launch
    counter set to 0 just before each and read just after, then the same
-   experiments with ``engine="local"`` (the plain solver) on the card, and
-   a small problem held against a CPU run;
-5. the LM main path: SmolLM-360M at full width (random weights from seed
+   experiments with ``engine="local"`` (the plain solver) on the card, both
+   on the loop driver, and a small problem held against a CPU run;
+5. the MOCHA evaluation path (``phase_eval_path``): (a) the pre-sampled
+   driver (a CUDA graph per round) against the loop driver on the local
+   engine, bit for bit, at Vehicle Sensor and Human Activity, with walls
+   per round and the capture time; (b) the Table-1 MTL grid at
+   Vehicle Sensor (10 shuffles x 9 lambdas) through the batched sweep,
+   held out on the test split; (c) the same cells through the grid path on
+   the kernel engine (one launch per round per cell, counters set to 0
+   just before and read just after), every cell held against the sweep's,
+   and the "global" kind through the kernel grid; (d) Mb-SGD and Mb-SDCA
+   on the card against the CPU;
+6. the LM main path: SmolLM-360M at full width (random weights from seed
    0) through ``repro_torch.serve.Engine.generate``, batch 8, prompt 1024,
    32 new tokens, in f32 and bf16, through the kernels (counters set to 0
    just before each generate and read just after: 32 flash and 992 decode
@@ -36,17 +48,20 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    plain route swaps the plain versions into
    ``repro_torch.models.layers`` for the comparison); a reduced SmolLM on
    the card against the CPU;
-6. time the SDCA kernel (CUDA events over many launches) beside its bound
+7. time the SDCA kernel (CUDA events over many launches) beside its bound
    and its chain floor (a model printed on the timing line: chain steps x
    one dependent step counted from the kernel's instructions at assumed
    latencies), its plain version and the wall time per
-   round of both engines; profile three kernel-engine rounds
+   round of both engines on the loop driver; profile three kernel-engine rounds
    (``torch.profiler``);
-7. time flash and decode at SmolLM-360M's shapes (kernel, plain version,
+8. time flash and decode at SmolLM-360M's shapes (kernel, plain version,
    ``scaled_dot_product_attention``) beside their bounds, with each
    kernel's design and share of the bound; prefill ms and decode ms per
    token of both routes; profile a prefill and decode steps in f32 and
-   bf16, each attention kernel's device time per call beside its bound.
+   bf16, each attention kernel's device time per call beside its bound;
+9. profile two rounds of each driver on the local engine at Vehicle
+   Sensor: replays of the pre-sampled driver's own program and a loop
+   run (device kernels and busy share per round), last.
 
 It prints the kernel table as JSON, the card line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Exits nonzero,
@@ -88,17 +103,22 @@ def card_line() -> str:
 
 
 def kernel_case(spec, *, seed=0, gram=None, dup=False, zero_budget=False,
-                zero_mask=False, mid_chunk=False, device="cuda"):
+                zero_mask=False, mid_chunk=False, pooled=False,
+                device="cuda"):
     """Kernel inputs at a federation's shapes as a MOCHA round makes them:
     the federation's X/y/mask and row norms, a feasible alpha, a small W,
     one-pass budgets, coordinate streams drawn from the port's PRNG.
     ``mid_chunk``: budgets of 3/8 of a pass, none a multiple of the
-    chunk."""
+    chunk.  ``pooled``: the "global" kind's one task of every client's rows
+    (``make_global_problem``)."""
     from repro_torch.core.dual import with_xnorm2
-    from repro_torch.data.synthetic import make_federation
+    from repro_torch.data.synthetic import make_federation, make_global_problem
     from repro_torch.kernels.sdca import draw_coordinates
     from repro_torch.utils import prng
-    data = with_xnorm2(make_federation(spec, seed=0, device=device)[0])
+    data = make_federation(spec, seed=0, device=device)[0]
+    if pooled:
+        data = make_global_problem(data)
+    data = with_xnorm2(data)
     m, n, d = data.X.shape
     rng = np.random.default_rng(seed)
     dev = data.X.device
@@ -274,6 +294,14 @@ def phase_kernels():
                 VEHICLE_SENSOR, name="vs_d99", d=99), False),
             ("d=1000, wide carry", dataclasses.replace(
                 HUMAN_ACTIVITY, name="ha_d1000", d=1000), None)))
+    # the "global" kind of the kernel grid (phase_eval_path): one task of
+    # every Vehicle Sensor client's rows, ~1,025 gram chunks in one block
+    errs["global"] = max(
+        check_kernel(f"vehicle_sensor pooled, {label}",
+                     kernel_case(VEHICLE_SENSOR, pooled=True, mid_chunk=mid),
+                     KERNEL_TOL)
+        for label, mid in (("one pass", False),
+                           ("budgets ending mid-chunk", True)))
     for spec in (VEHICLE_SENSOR, HUMAN_ACTIVITY):
         for kw in ("zero_budget", "zero_mask"):
             check_kernel(f"{spec.name}, {kw} (exact no-op)",
@@ -282,6 +310,9 @@ def phase_kernels():
 
 
 def _experiment(spec, reg, engine, every):
+    """The main path's experiment on ``engine``, on the loop driver: the
+    kernel engine has no other, and the local engine's walls here stay
+    those of the loop (phase_eval_path times the pre-sampled driver)."""
     from repro_torch.api import Eval, Exec, Experiment, Method, Problem
     from repro_torch.data.synthetic import make_federation
     train, test = make_federation(spec, seed=0)   # on the card
@@ -289,7 +320,8 @@ def _experiment(spec, reg, engine, every):
         problem=Problem(train=train),
         method=Method(loss="hinge", regularizers=(reg,), rounds=ROUNDS,
                       omega_update_every=every),
-        exec=Exec(engine=engine), eval=Eval(record_every=1)), test
+        exec=Exec(engine=engine, driver="loop"),
+        eval=Eval(record_every=1)), test
 
 
 def _run_timed(exp):
@@ -314,7 +346,8 @@ def _compare_histories(label, a, b):
 
 
 def phase_main_path():
-    """The main path: full-size experiments, kernel engine then local."""
+    """The main path: full-size experiments, kernel engine then local,
+    both on the loop driver."""
     from repro_torch.core import Clustered, MeanRegularized, per_task_error
     from repro_torch.data.synthetic import HUMAN_ACTIVITY, VEHICLE_SENSOR
     cases = [("vehicle_sensor", VEHICLE_SENSOR, Clustered(lam=1.0, k=3), 5),
@@ -340,7 +373,8 @@ def phase_main_path():
               f"omega_update_every={every}: launches={launches}, final gap "
               f"kernel {rep_k.final('gap'):.6g} local {rep_l.final('gap'):.6g}"
               f", history max rel diff {rel:.3e}, mean test error "
-              f"{err:.4f}, wall/round kernel {1e3 * wall_k / ROUNDS:.2f} ms "
+              f"{err:.4f}, wall/round (loop driver) kernel "
+              f"{1e3 * wall_k / ROUNDS:.2f} ms "
               f"local {1e3 * wall_l / ROUNDS:.2f} ms", flush=True)
         out[label] = dict(launches=launches, exp_k=exp_k, exp_l=exp_l,
                           wall_ms=[1e3 * wall_k / ROUNDS,
@@ -364,6 +398,265 @@ def phase_small_reference():
                              reps[1].history)
     print(f"small reference [tiny, cuda kernel vs cpu plain]: history max "
           f"rel diff {rel:.3e}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The MOCHA evaluation path: the pre-sampled driver, the grids, held-out
+# evaluation and the mini-batch baselines
+# ---------------------------------------------------------------------------
+
+#: the Table-1 protocol's full lambda grid and shuffle count
+#: (benchmarks/common.py LAMBDAS_FULL, SHUFFLES_FULL)
+EVAL_LAMBDAS = (1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 3e-1, 1.0)
+EVAL_SHUFFLES = 10
+GLOBAL_SHUFFLES = 3
+#: a grid cell against the single run of that cell, and a card run against
+#: the CPU (the parity contract): objectives rtol / atol, W and Omega
+#: rtol / atol; float32 sums in another order over ten rounds.  Between
+#: the kernel and the plain solver (the kernel grid against the sweep) the
+#: W and Omega atol scales with max(1, max|x|) of the cell, as the
+#: kernel-vs-plain rule scales with the largest output: an entry that is
+#: small by cancellation carries the rounding of the cell's largest terms
+#: (at lambda 1e-4 max|W| is ~9)
+OBJ_TOL = (1e-5, 1e-4)
+W_TOL = (1e-4, 1e-5)
+
+
+def _close(label, got, want, tol, scale=1.0):
+    """|got - want| <= rtol |want| + atol scale, element by element."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    rtol, atol = tol
+    err = np.abs(got - want)
+    if not (np.all(np.isfinite(got))
+            and np.all(err <= atol * scale + rtol * np.abs(want))):
+        raise AssertionError(f"{label}: max |diff| {err.max():.3e} beyond "
+                             f"rtol {rtol:g} / atol {atol:g} x {scale:.3g}")
+    return float(err.max())
+
+
+def _local_exp(train, reg, driver, every, rounds=None):
+    from repro_torch.api import Exec, Experiment, Method, Problem
+    return Experiment(problem=Problem(train=train),
+                      method=Method(loss="hinge", regularizers=(reg,),
+                                    rounds=rounds or ROUNDS,
+                                    omega_update_every=every),
+                      exec=Exec(engine="local", driver=driver))
+
+
+def eval_drivers(label, spec, reg, every):
+    """(a) The loop and the pre-sampled driver on the local engine: the same
+    bits; wall per round of each and the capture time.  The main path ran
+    the loop at these shapes before; a 2-round scanned run warms the
+    pre-sampled driver up."""
+    from repro_torch.data.synthetic import make_federation
+    train = make_federation(spec, seed=0)[0]
+    _run_timed(_local_exp(train, reg, "scan", every, rounds=2))
+    loop, wall_loop = _run_timed(_local_exp(train, reg, "loop", every))
+    scan, wall_scan = _run_timed(_local_exp(train, reg, "scan", every))
+    if scan.provenance["driver"] != "scan" or scan.result.capture_s is None:
+        raise AssertionError(f"{label}: the scanned run captured no graph")
+    if loop.history != scan.history or not all(
+            np.array_equal(getattr(loop.result, k), getattr(scan.result, k))
+            for k in ("W", "omega", "round_budgets")):
+        raise AssertionError(f"{label}: the scanned driver's bits differ "
+                             "from the loop driver's")
+    capture = scan.result.capture_s
+    row = dict(loop_ms_per_round=1e3 * wall_loop / ROUNDS,
+               scan_ms_per_round=1e3 * wall_scan / ROUNDS,
+               scan_ms_per_round_after_capture=1e3 * (wall_scan - capture)
+               / ROUNDS, capture_s=capture, final_gap=scan.final("gap"))
+    print(f"eval (a) drivers [{label}] m={train.m} d={train.d} "
+          f"{scan.provenance['gram_mode']}, {ROUNDS} rounds, omega every "
+          f"{every}: scan == loop bit for bit (history, W, omega, "
+          f"round_budgets); wall/round loop {row['loop_ms_per_round']:.2f} "
+          f"ms, scan {row['scan_ms_per_round']:.2f} ms "
+          f"({row['scan_ms_per_round_after_capture']:.2f} ms after the "
+          f"capture), capture (warm-up round, capture, instantiation) "
+          f"{capture:.3f} s [{card_line()}]", flush=True)
+    return row
+
+
+def _grid_exp(trains, tests, regs, every, engine):
+    from repro_torch.api import Eval, Exec, Experiment, Method, Problem
+    from repro_torch.core import BudgetConfig
+    return Experiment(
+        problem=Problem(train=trains),
+        method=Method(loss="hinge", regularizers=regs, rounds=ROUNDS,
+                      omega_update_every=every,
+                      budget=BudgetConfig(passes=1.0)),
+        exec=Exec(engine=engine),
+        eval=Eval(record_every=ROUNDS, holdout=tests))
+
+
+def _hold_cells(label, got, want):
+    """Every (regularizer, shuffle) cell of two grid results, the kernel's
+    against the plain solver's: (worst objective |diff|, worst W and Omega
+    |diff| over max(1, max|x|) of its cell, that cell's max|x|)."""
+    worst = 0.0
+    for k in ("dual", "primal", "gap"):
+        worst = max(worst, _close(f"{label} {k}", getattr(got, k),
+                                  getattr(want, k), OBJ_TOL))
+    worst_w, worst_scale = 0.0, 1.0
+    R, S = want.W.shape[:2]
+    for k in ("W", "omega"):
+        for r in range(R):
+            for s in range(S):
+                x = getattr(want, k)[r, s]
+                scale = max(1.0, float(np.abs(x).max()))
+                err = _close(f"{label} {k} cell ({r}, {s})",
+                             getattr(got, k)[r, s], x, W_TOL, scale)
+                if err / scale > worst_w:
+                    worst_w, worst_scale = err / scale, scale
+    return worst, worst_w, worst_scale
+
+
+def eval_grids():
+    """(b) The Table-1 MTL grid at Vehicle Sensor through the batched sweep,
+    held out on the test split; every cell held against the single run of
+    that cell: (c) the grid path on the kernel engine over every shuffle
+    (cell by cell through the core driver, one launch per round per cell)
+    and two cells as single local-engine experiments; then the "global"
+    kind (``make_global_problem``) through the kernel grid."""
+    from repro_torch.core import MeanRegularized, Probabilistic
+    from repro_torch.data.synthetic import (VEHICLE_SENSOR,
+                                            make_federation,
+                                            make_global_problem)
+    card = card_line()
+    splits = [make_federation(VEHICLE_SENSOR, seed=s)
+              for s in range(EVAL_SHUFFLES)]
+    trains, tests = [tr for tr, _ in splits], [te for _, te in splits]
+    regs = tuple(Probabilistic(lam=lam, sigma2=10.0) for lam in EVAL_LAMBDAS)
+    cells = len(regs) * EVAL_SHUFFLES
+    sweep, wall_sweep = _run_timed(_grid_exp(trains, tests, regs, 5,
+                                             "local"))
+    if (sweep.provenance["path"], sweep.provenance["driver"]) != (
+            "sweep", "vmap"):
+        raise AssertionError(f"the grid took {sweep.provenance['path']}")
+    ev = sweep.evaluation
+    if not (np.all(np.isfinite(ev.grid)) and 0 < ev.summary[
+            "best_mean_error"] < 0.5):
+        raise AssertionError(f"sweep held-out errors {ev.summary}")
+    capture = sweep.result.capture_s
+    print(f"eval (b) sweep [vehicle_sensor, {EVAL_SHUFFLES} shuffles x "
+          f"{len(regs)} lambdas, Probabilistic(sigma2=10), omega every 5, "
+          f"{ROUNDS} rounds]: {cells} cells in one program, wall "
+          f"{wall_sweep:.3f} s ({1e3 * wall_sweep / ROUNDS:.1f} ms per round"
+          f" of the grid; capture {capture:.3f} s, "
+          f"{1e3 * (wall_sweep - capture) / ROUNDS:.1f} ms per round after "
+          f"it); held-out best-lambda mean test error "
+          f"{ev.summary['best_mean_error']:.4f} +- "
+          f"{ev.summary['best_stderr']:.4f} (stderr) [{card}]", flush=True)
+
+    reset_all_counts()
+    grid, wall_grid = _run_timed(_grid_exp(trains, tests, regs, 5, "kernel"))
+    launches = read_counts()["sdca_local_solve"]
+    if grid.provenance["path"] != "grid" or launches != cells * ROUNDS:
+        raise AssertionError(f"kernel grid: path {grid.provenance['path']},"
+                             f" {launches} launches for {cells} cells")
+    worst, worst_w, worst_scale = _hold_cells("sweep vs kernel grid",
+                                              sweep.result, grid.result)
+    np.testing.assert_array_equal(grid.evaluation.grid.shape, ev.grid.shape)
+    print(f"eval (c) kernel grid [vehicle_sensor, the same {cells} cells, "
+          f"engine='kernel', path grid]: {launches} launches "
+          f"({ROUNDS} per cell), wall {wall_grid:.3f} s "
+          f"({1e3 * wall_grid / (cells * ROUNDS):.2f} ms per cell-round); "
+          f"every cell within the sweep's: objectives max |diff| "
+          f"{worst:.3e} (rtol {OBJ_TOL[0]:g} / atol {OBJ_TOL[1]:g}), W and "
+          f"omega max |diff| {worst_w:.3e} of max(1, max|x|) of the cell "
+          f"(that cell's max|x| {worst_scale:.3g}; rtol {W_TOL[0]:g} / atol "
+          f"{W_TOL[1]:g} x that); best-lambda error "
+          f"{grid.evaluation.summary['best_mean_error']:.4f} [{card}]",
+          flush=True)
+    diffs = {"objectives": [0.0], "W and omega": [0.0]}
+    for r, s in ((0, 0), (len(regs) // 2, 0),
+                 (len(regs) - 1, EVAL_SHUFFLES - 1)):
+        one = _local_exp(trains[s], regs[r], "auto", 5).run(0)
+        for k in ("dual", "primal", "gap"):
+            diffs["objectives"].append(_close(
+                f"cell ({r}, {s}) {k}", getattr(sweep.result, k)[r, s],
+                one.final(k), OBJ_TOL))
+        for k in ("W", "omega"):
+            diffs["W and omega"].append(_close(
+                f"cell ({r}, {s}) {k}", getattr(sweep.result, k)[r, s],
+                getattr(one.result, k), W_TOL))
+    print("eval (b) three cells against single local-engine runs (scanned, "
+          "on a CUDA graph): max |diff| " + ", ".join(
+              f"{k} {max(v):.3e}" for k, v in diffs.items())
+          + f" (W and omega element by element, rtol {W_TOL[0]:g} / atol "
+          f"{W_TOL[1]:g})", flush=True)
+
+    gtrains = [make_global_problem(tr) for tr in trains[:GLOBAL_SHUFFLES]]
+    gtests = [make_global_problem(te) for te in tests[:GLOBAL_SHUFFLES]]
+    gregs = tuple(MeanRegularized(lambda1=0.0, lambda2=lam)
+                  for lam in EVAL_LAMBDAS)
+    reset_all_counts()
+    glob, wall_glob = _run_timed(_grid_exp(gtrains, gtests, gregs, 0,
+                                           "kernel"))
+    glaunches = read_counts()["sdca_local_solve"]
+    gcells = len(gregs) * GLOBAL_SHUFFLES
+    gsum = glob.evaluation.summary
+    if glaunches != gcells * ROUNDS or not (
+            np.all(np.isfinite(glob.result.gap))
+            and 0 < gsum["best_mean_error"] < 0.5):
+        raise AssertionError(f"global kernel grid: {glaunches} launches, "
+                             f"summary {gsum}")
+    print(f"eval (c) global kind [vehicle_sensor pooled, one task of "
+          f"{gtrains[0].n_max} rows, {GLOBAL_SHUFFLES} shuffles x "
+          f"{len(gregs)} lambdas, kernel grid]: {glaunches} launches, wall "
+          f"{wall_glob:.3f} s, best-lambda test error "
+          f"{gsum['best_mean_error']:.4f} +- {gsum['best_stderr']:.4f} "
+          f"(MTL {ev.summary['best_mean_error']:.4f}) [{card}]", flush=True)
+    return dict(sweep_s=wall_sweep, sweep_capture_s=capture,
+                kernel_grid_s=wall_grid,
+                global_grid_s=wall_glob, cells=cells,
+                kernel_grid_launches=launches, global_launches=glaunches,
+                kernel_grid_worst_obj=worst, kernel_grid_worst_w=worst_w,
+                mtl_best_error=ev.summary["best_mean_error"],
+                mtl_best_stderr=ev.summary["best_stderr"],
+                global_best_error=gsum["best_mean_error"])
+
+
+def eval_minibatch():
+    """(d) Mb-SGD and Mb-SDCA at Vehicle Sensor, 10 rounds, on the card and
+    on the CPU from the same data and seed."""
+    from repro_torch.core import (MeanRegularized, MiniBatchConfig,
+                                  run_mb_sdca, run_mb_sgd)
+    from repro_torch.data.synthetic import VEHICLE_SENSOR, make_federation
+    cfg = MiniBatchConfig(loss="hinge", rounds=ROUNDS, batch=16, lr=0.05,
+                          beta=8.0, seed=0)
+    reg = MeanRegularized(lambda1=0.1, lambda2=0.1)
+    out = {}
+    for name, fn in (("mb_sgd", run_mb_sgd), ("mb_sdca", run_mb_sdca)):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            train = make_federation(VEHICLE_SENSOR, seed=0, device=dev)[0]
+            res[dev] = fn(train, reg, cfg)
+        err = max(_close(f"{name} {k}", res["cuda"].history[k],
+                         res["cpu"].history[k], OBJ_TOL)
+                  for k in res["cuda"].history if k not in ("round", "time"))
+        _close(f"{name} W", res["cuda"].W, res["cpu"].W, W_TOL)
+        out[name] = res["cuda"].final("primal")
+        print(f"eval (d) {name} [vehicle_sensor, {ROUNDS} rounds]: final "
+              f"primal {out[name]:.6g} (cpu {res['cpu'].final('primal'):.6g}"
+              f"), history max |diff| {err:.3e}", flush=True)
+    return out
+
+
+def phase_eval_path():
+    """The evaluation path, (a)-(d); the SDCA counter is set to 0 just
+    before each kernel grid and read just after it."""
+    from repro_torch.core import Clustered
+    from repro_torch.data.synthetic import HUMAN_ACTIVITY, VEHICLE_SENSOR
+    t0 = time.perf_counter()
+    drivers = {label: eval_drivers(label, spec, Clustered(lam=1.0, k=3), 5)
+               for label, spec in (("vehicle_sensor", VEHICLE_SENSOR),
+                                   ("human_activity", HUMAN_ACTIVITY))}
+    grids = eval_grids()
+    mb = eval_minibatch()
+    wall = time.perf_counter() - t0
+    print(f"eval path: {wall:.1f} s", flush=True)
+    return dict(drivers=drivers, grids=grids, minibatch_primal=mb,
+                wall_s=wall)
 
 
 def _events_ms(fn, reps):
@@ -480,8 +773,8 @@ def phase_timing(main, errs):
               f"{b['chain_steps']} steps -> {row['ns_per_chain_step']:.1f} "
               f"ns/step, chain floor (modelled) {floor_ms:.4f} ms "
               f"({step_cycles} cycles/step at {mhz:.0f} MHz, "
-              f"{1e3 * step_cycles / mhz:.1f} ns); wall/round kernel "
-              f"engine "
+              f"{1e3 * step_cycles / mhz:.1f} ns); wall/round (loop "
+              f"driver) kernel engine "
               f"{row['wall_ms_per_round_kernel']:.2f} / "
               f"{row['wall_ms_per_round_repeat'][0]:.2f} ms, local engine "
               f"{row['wall_ms_per_round_local']:.2f} / "
@@ -1134,6 +1427,80 @@ def phase_lm_profile(lm):
                   f"the bound", flush=True)
 
 
+def _traced(fn, activities):
+    """(wall s, device ms, device kernels) of ``fn()`` under torch.profiler."""
+    from torch.profiler import profile
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and "CUDA" in str(e.device_type)]
+    return (wall, sum(_device_ms(e) for e in events),
+            sum(e.count for e in events))
+
+
+def phase_eval_profile(drivers, rounds=2):
+    """Where a local-engine round goes on each driver (Vehicle Sensor, the
+    main path's regularizer), from torch.profiler traces: ``rounds``
+    replays of the pre-sampled driver's own program (``mocha.
+    _scanned_program``, its CUDA graph captured before the window, replayed
+    through the driver's ``_replay_rounds``), then a whole ``rounds``-round
+    loop-driver run (device activity only: the loop's ~42k launches a round
+    would add ~4 host events each).  Each trace's device time per round
+    over the un-traced wall per round of that driver (phase_eval_path) is
+    its device-busy share.  The replay window holds rounds only; the loop
+    run also its set-up and per-round metrics, as both walls do.  Run after
+    every other profile: after a profile
+    of whole scanned and loop runs (~10^6 events) later profiles in the
+    same process read low device times."""
+    from torch.profiler import ProfilerActivity
+    from repro_torch.core import Clustered, MochaConfig
+    from repro_torch.core.mocha import (_replay_rounds, _scanned_program,
+                                        _start)
+    from repro_torch.data.synthetic import VEHICLE_SENSOR, make_federation
+    train = make_federation(VEHICLE_SENSOR, seed=0)[0]
+    reg = Clustered(lam=1.0, k=3)
+    run = _start(train, reg, MochaConfig(rounds=rounds + 1,
+                                         omega_update_every=5,
+                                         driver="scan"))
+    keys, budgets, prog = _scanned_program(run)
+    prog.run()                      # the first round, before the window
+    wall, dev_ms, kernels = _traced(
+        lambda: _replay_rounds(prog, keys[1:], budgets[1:],
+                               run.cfg.omega_update_every, run.omega_step),
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    loop_exp = _local_exp(train, reg, "loop", 5, rounds=rounds)
+    loop_wall, loop_dev_ms, loop_kernels = _traced(
+        lambda: loop_exp.run(0), [ProfilerActivity.CUDA])
+    vs = drivers["vehicle_sensor"]
+    row = dict(replay_wall_ms=1e3 * wall / rounds,
+               device_ms=dev_ms / rounds, kernels=kernels / rounds,
+               loop_traced_wall_ms=1e3 * loop_wall / rounds,
+               loop_device_ms=loop_dev_ms / rounds,
+               loop_kernels=loop_kernels / rounds)
+    row.update(busy_replay=row["device_ms"] / row["replay_wall_ms"],
+               busy_scan=row["device_ms"]
+               / vs["scan_ms_per_round_after_capture"],
+               busy_loop=row["loop_device_ms"] / vs["loop_ms_per_round"])
+    print(f"profile [vehicle_sensor local engine, {rounds} rounds each]: "
+          f"pre-sampled driver (graph replays) wall "
+          f"{row['replay_wall_ms']:.2f} ms/round traced, device busy "
+          f"{row['device_ms']:.3f} ms/round, {row['kernels']:.0f} device "
+          f"kernels/round; loop driver wall {row['loop_traced_wall_ms']:.2f}"
+          f" ms/round traced, device busy {row['loop_device_ms']:.3f} "
+          f"ms/round, {row['loop_kernels']:.0f} device kernels/round; "
+          f"device busy over the un-traced walls per round: scan "
+          f"{100 * row['busy_scan']:.1f}% "
+          f"({vs['scan_ms_per_round_after_capture']:.2f} ms after the "
+          f"capture), loop {100 * row['busy_loop']:.1f}% "
+          f"({vs['loop_ms_per_round']:.2f} ms) [{card_line()}]", flush=True)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1147,6 +1514,9 @@ def main() -> int:
     attn_errs = phase_attention_kernels()
     main_runs = phase_main_path()
     launches = sum(r["launches"] for r in main_runs.values())
+    eval_path = phase_eval_path()
+    eval_launches = (eval_path["grids"]["kernel_grid_launches"]
+                     + eval_path["grids"]["global_launches"])
     phase_small_reference()
     lm = phase_lm_main_path()
     phase_lm_small_reference()
@@ -1155,12 +1525,15 @@ def main() -> int:
     attn = phase_attention_timing(attn_errs)
     serve = phase_serve_timing(lm)
     phase_lm_profile(lm)
+    eval_path["replay_profile"] = phase_eval_profile(eval_path["drivers"])
     head = shapes["vehicle_sensor"]
     kernels = [dict(
         name="sdca_local_solve", route="cuda",
         source="src/repro_torch/kernels/sdca/csrc/sdca.cu",
         replaces="src/repro/kernels/sdca/sdca.py:45",
-        launches=launches,
+        launches=launches + eval_launches,
+        launches_by_path={"mocha_main": launches,
+                          "eval_kernel_grids": eval_launches},
         max_abs_err=max(errs.values()),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=None,
@@ -1185,6 +1558,7 @@ def main() -> int:
             library_ms=f32["library_ms"],
             shapes={"float32": f32, "bfloat16": bf16}))
     print(json.dumps({"serve_ms": serve}))
+    print(json.dumps({"eval_path": eval_path}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

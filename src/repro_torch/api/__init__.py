@@ -9,12 +9,16 @@
     ).run(seed=0)
 
 The same specs as the JAX package's ``repro.api``, plus ``Exec.device``.
-This slice runs the single path; ``report.provenance`` records the engine,
-the driver, the resolved gram crossover, the device and the card's name.
+The port runs the single path and the (shuffle x regularizer) grids, batched
+(``sweep``) or cell by cell (``grid``), with held-out evaluation
+(``Eval(holdout=...)``); ``report.provenance`` records the path, the inner
+driver, the fallback reason, the engine, the resolved gram crossover, the
+device and the card's name.
 """
 from repro_torch.api.execute import run_experiment
 from repro_torch.api.report import PROVENANCE_KEYS, Report
-from repro_torch.api.router import PATHS, RoutePlan, route
+from repro_torch.api.router import (INNER_DRIVERS, PATHS, RoutePlan,
+                                    batch_incompatibility, route)
 from repro_torch.api.specs import (PROBLEM_KINDS, Eval, Exec, Experiment,
                                    Method, Problem, Systems, as_mocha_config,
                                    config_fingerprint)
@@ -29,10 +33,12 @@ __all__ = [
     "Report",
     "RoutePlan",
     "route",
+    "batch_incompatibility",
     "run_experiment",
     "as_mocha_config",
     "config_fingerprint",
     "PATHS",
+    "INNER_DRIVERS",
     "PROBLEM_KINDS",
     "PROVENANCE_KEYS",
 ]

@@ -1,4 +1,5 @@
-"""The experiment result: the run's payload plus provenance."""
+"""The experiment result: the run's payload, held-out evaluation and
+provenance."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +16,10 @@ PROVENANCE_KEYS = ("path", "driver", "engine", "fallback_reason",
 @dataclasses.dataclass
 class Report:
     """What ``Experiment.run`` hands back: ``result`` is the driver's
-    ``RunResult``; ``provenance`` records how the run executed."""
+    ``RunResult`` (single path) or a ``SweepResult`` (sweep and grid
+    paths); ``provenance`` records how the run executed (the router's path,
+    inner driver and fallback reason among it); ``evaluation`` is the
+    held-out ``EvalReport`` when ``Eval.holdout`` is set."""
 
     result: Any
     provenance: Dict[str, Any]

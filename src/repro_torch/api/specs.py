@@ -7,13 +7,13 @@
   * ``Method``  -- loss, regularizer, rounds, budgets, Omega schedule;
   * ``Systems`` -- the simulated systems environment;
   * ``Exec``    -- how it executes: engine, driver, crossover, device;
-  * ``Eval``    -- the history cadence.
+  * ``Eval``    -- the history cadence and the held-out split.
 
 ``Experiment.run(seed)`` routes (``router.route``) and runs it
-(``execute.run_experiment``).  This slice of the port runs the single path;
-the fields of the other paths (shuffle grids, populations, resilience,
-telemetry, held-out evaluation) exist with the JAX package's defaults, and
-setting one raises ``NotImplementedError`` naming its ROADMAP item.
+(``execute.run_experiment``).  The port runs the single, sweep and grid
+paths; the fields of the other paths (populations, resilience, telemetry)
+exist with the JAX package's defaults, and setting one raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -71,6 +71,29 @@ class Problem:
         first = (self.train if isinstance(self.train, FederatedData)
                  else self.train[0])
         return int(first.X.shape[-1])
+
+    def stacked(self) -> FederatedData:
+        """The (S, m, n, d) stacked view of the shuffle axis."""
+        from repro_torch.core.sweep import stack_federations
+        if not isinstance(self.train, FederatedData):
+            return stack_federations(self.train)
+        if self.train.X.ndim == 3:
+            return stack_federations([self.train])
+        return self.train
+
+    def shuffle_list(self) -> Tuple[FederatedData, ...]:
+        """Per-shuffle (m, n, d) federations (the grid path's view): a
+        sequence as given (unpadded), a stack sliced (its padding is inert
+        under the masks)."""
+        if not isinstance(self.train, FederatedData):
+            return self.train
+        if self.train.X.ndim == 3:
+            return (self.train,)
+        t = self.train
+        return tuple(
+            FederatedData(X=t.X[s], y=t.y[s], mask=t.mask[s],
+                          xnorm2=None if t.xnorm2 is None else t.xnorm2[s])
+            for s in range(t.X.shape[0]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,7 +153,7 @@ class Exec:
     """
 
     engine: Any = "local"
-    driver: str = "auto"               # auto | loop
+    driver: str = "auto"               # auto | scan | loop
     gram_max_d: Optional[int] = None
     device: str = "cuda"
     state0: Optional[DualState] = None
@@ -169,13 +192,29 @@ class Exec:
 
 @dataclasses.dataclass(frozen=True)
 class Eval:
-    """What is measured: the history cadence, and (in later slices) the
-    held-out split or held-out clients."""
+    """What is measured: the history cadence, and the held-out split.
+
+    ``holdout`` is a test ``FederatedData`` matching the problem (stacked,
+    or a sequence, for shuffle grids); when set, the Report carries a
+    per-client table of ``metrics``.  ``holdout_clients`` belongs to the
+    cohort path.
+    """
 
     record_every: int = 1
-    holdout: Optional[Any] = None
+    holdout: Optional[Union[FederatedData, Sequence[FederatedData]]] = None
     holdout_clients: int = 0
     metrics: Tuple[str, ...] = ("error", "loss")
+
+    def holdout_stacked(self) -> Optional[FederatedData]:
+        """The held-out split as (S, m, n, d), or None."""
+        from repro_torch.core.sweep import stack_federations
+        if self.holdout is None:
+            return None
+        if not isinstance(self.holdout, FederatedData):
+            return stack_federations(tuple(self.holdout))
+        if self.holdout.X.ndim == 3:
+            return stack_federations([self.holdout])
+        return self.holdout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,7 +241,8 @@ class Experiment:
         return route(self)
 
 
-def as_mocha_config(exp: Experiment, seed: int = 0) -> MochaConfig:
+def as_mocha_config(exp: Experiment, seed: int = 0, *,
+                    record_every: Optional[int] = None) -> MochaConfig:
     """``MochaConfig`` as a frozen view over (Method, Systems, Exec, Eval):
     the one wiring point between the specs and the driver."""
     return MochaConfig(
@@ -216,7 +256,8 @@ def as_mocha_config(exp: Experiment, seed: int = 0) -> MochaConfig:
         network=exp.systems.network,
         systems=exp.systems.config,
         seed=int(seed),
-        record_every=exp.eval.record_every,
+        record_every=(exp.eval.record_every if record_every is None
+                      else record_every),
         driver=exp.exec.driver,
         gram_max_d=exp.exec.gram_max_d,
         device=exp.exec.device,

@@ -6,6 +6,7 @@ containers on the requested device; a port run then continues from them
 through ``Exec(state0=...)`` and ``Method(omega0=...)``::
 
     data = federation_from_numpy(X, y, mask, device="cuda")
+    shuffles = federation_from_numpy(Xs, ys, masks, device="cuda")  # stacked
     state = state_from_numpy(res.state.alpha, res.state.v, device="cuda")
     omega = omega_from_numpy(res.omega, device="cuda")
 
@@ -33,8 +34,18 @@ def _tensor(a, dev) -> torch.Tensor:
 
 def federation_from_numpy(X, y, mask, xnorm2=None,
                           device: Optional[str] = None) -> FederatedData:
-    """``FederatedData`` from (m, n, d) X and (m, n) y, mask, xnorm2."""
+    """``FederatedData`` from (m, n, d) X and (m, n) y, mask, xnorm2, or
+    from a stack of shuffles: (S, m, n, d) X and (S, m, n) y, mask, xnorm2
+    (the JAX package's ``stack_federations`` layout)."""
     dev = resolve_device(device)
+    X = np.asarray(X)
+    if X.ndim not in (3, 4):
+        raise ValueError(f"X must be (m, n, d) or (S, m, n, d), got "
+                         f"{X.shape}")
+    for name, a in (("y", y), ("mask", mask), ("xnorm2", xnorm2)):
+        if a is not None and np.shape(a) != X.shape[:-1]:
+            raise ValueError(f"{name} must be {X.shape[:-1]}, got "
+                             f"{np.shape(a)}")
     return FederatedData(X=_tensor(X, dev), y=_tensor(y, dev),
                          mask=_tensor(mask, dev),
                          xnorm2=None if xnorm2 is None else _tensor(xnorm2,

@@ -15,6 +15,11 @@ Contract: ``setup(data, loss, max_steps, gram=None)`` returns the initial
 updated one.  Every engine splits ``key`` into per-task keys with
 ``prng.split(key, m)``, so engines (and the JAX package's engines) draw the
 same coordinate streams from the same key.
+
+An engine with ``supports_scan`` also hands the pre-sampled driver a pure
+round function (``scan_round_fn``) that reads nothing back to the host, so
+that a CUDA graph can capture it.  The kernel engine keeps the loop driver,
+as the JAX package's ``PallasEngine`` does.
 """
 from __future__ import annotations
 
@@ -36,6 +41,16 @@ class RoundEngine(abc.ABC):
     """Executes one federated W-update round for the MOCHA driver."""
 
     name: str = "abstract"
+    #: True iff the pre-sampled driver may run this engine's rounds
+    #: (``scan_round_fn``); engines with host-side work keep the loop
+    supports_scan: bool = False
+
+    def scan_round_fn(self):
+        """Pure round function for the pre-sampled driver, called as
+        ``fn(loss, max_steps, gram, data, state, K, q_t, budgets, gamma,
+        key)``: no host read, bits equal to ``round``."""
+        raise NotImplementedError(
+            f"engine {self.name!r} does not support the scanned driver")
 
     @abc.abstractmethod
     def setup(self, data: FederatedData, loss: Loss, max_steps: int,
@@ -55,10 +70,35 @@ def _apply(state: DualState, gamma: float, dalpha: Tensor,
                      v=state.v + gamma * u)
 
 
+def _local_round(loss: Loss, max_steps: int, gram: Optional[bool],
+                 data: FederatedData, state: DualState, K: Tensor,
+                 q_t: Tensor, budgets: Tensor, gamma: float, key: Tensor,
+                 static: bool = False) -> DualState:
+    """One round of the plain solver.  ``K`` (m, m) and ``key`` (2,) are
+    one federation's; given (C, m, m) and (C, 2), ``data`` and ``state``
+    hold C federations of m tasks each along their task axis (C*m tasks,
+    the sweep's cells), solved as one batch."""
+    W = dual_mod.primal_weights(
+        K, state.v.reshape(*K.shape[:-1], -1)).reshape(state.v.shape)
+    keys = prng.split(key, K.shape[-1]).reshape(-1, 2)
+    dalpha, u = batched_local_sdca(
+        loss, data.X, data.y, data.mask, state.alpha, W, q_t, budgets, keys,
+        max_steps, xnorm2=data.xnorm2, gram=gram, static=static)
+    return _apply(state, gamma, dalpha, u)
+
+
+def _scan_local_round(loss, max_steps, gram, data, state, K, q_t, budgets,
+                      gamma, key) -> DualState:
+    """``_local_round`` over every chunk: no host read."""
+    return _local_round(loss, max_steps, gram, data, state, K, q_t, budgets,
+                        gamma, key, static=True)
+
+
 class LocalEngine(RoundEngine):
     """The plain PyTorch solver, batched over tasks: every loss."""
 
     name = "local"
+    supports_scan = True
 
     def setup(self, data, loss, max_steps, gram=None):
         self.data, self.loss, self.max_steps = data, loss, max_steps
@@ -66,14 +106,11 @@ class LocalEngine(RoundEngine):
         return dual_mod.init_state(data)
 
     def round(self, state, K, q_t, budgets, gamma, key):
-        data = self.data
-        W = dual_mod.primal_weights(K, state.v)
-        keys = prng.split(key, data.m)
-        dalpha, u = batched_local_sdca(
-            self.loss, data.X, data.y, data.mask, state.alpha, W, q_t,
-            budgets, keys, self.max_steps, xnorm2=data.xnorm2,
-            gram=self.gram)
-        return _apply(state, gamma, dalpha, u)
+        return _local_round(self.loss, self.max_steps, self.gram, self.data,
+                            state, K, q_t, budgets, gamma, key)
+
+    def scan_round_fn(self):
+        return _scan_local_round
 
 
 class KernelEngine(RoundEngine):

@@ -8,14 +8,29 @@ owns the rounds, the Omega refreshes, the budgets, the metrics and the
 simulated wall clock (``SystemsTrace``).  Under the ``semi_sync`` policy
 the trace caps each node's budget to what fits the clock cycle.
 
-The port runs the JAX package's loop driver: one engine call and one host
-read of the budgets per round.  The JAX package's scanned driver is
-bit-identical to its loop there, so this loop is held against both.
+Two drivers run the same W-round loop, as in the JAX package:
+
+  * the **loop driver** steps rounds from Python: one engine call and one
+    host read of the budgets per round (every engine);
+  * the **pre-sampled ("scanned") driver** (engines with
+    ``supports_scan``) draws the whole (rounds, m) budget matrix and the
+    round keys up front (budgets and semi_sync caps are round-indexed, never
+    state-dependent), runs every round through one ``RoundProgram`` -- on a
+    CUDA device a CUDA graph captured once and replayed, the counterpart of
+    XLA compiling the JAX package's ``lax.scan`` body -- writes each recorded
+    round's metrics into a device buffer, and reads the executed budgets and
+    the metric rows back once at the end; the ``SystemsTrace`` then replays
+    the executed budgets.
+
+The two give the same bits on a fixed seed: the scanned round runs every
+chunk of the local solve, the loop's round stops after the last live one,
+and dead chunks add exact zeros.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+import time
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,11 +38,12 @@ import torch
 from repro_torch.core import dual as dual_mod
 from repro_torch.core.dual import DualState, FederatedData
 from repro_torch.core.engine import RoundEngine, get_engine
-from repro_torch.core.losses import get_loss
+from repro_torch.core.losses import Loss, get_loss
 from repro_torch.core.regularizers import Regularizer, sigma_prime
 from repro_torch.core.subproblem import resolve_gram
 from repro_torch.core.systems_model import SystemsConfig, SystemsTrace
-from repro_torch.core.theta import (BudgetConfig, round_budgets,
+from repro_torch.core.theta import (BudgetConfig, presample_budgets,
+                                    round_budgets, round_key_schedule,
                                     validate_assumption2)
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
@@ -54,7 +70,7 @@ class MochaConfig:
     systems: Optional[SystemsConfig] = None  # full systems model
     seed: int = 0
     record_every: int = 1
-    driver: str = "auto"               # auto | loop (scan: not yet)
+    driver: str = "auto"               # auto | scan | loop
     #: per-run override of the residual-mode crossover: d <= gram_max_d
     #: selects gram mode; None defers to ``REPRO_GRAM_MAX_D`` / the default
     gram_max_d: Optional[int] = None
@@ -70,6 +86,9 @@ class RunResult:
     history: Dict[str, List[float]]
     trace: Optional[SystemsTrace] = None        # per-node event log
     round_budgets: Optional[np.ndarray] = None  # (rounds, m) executed steps
+    #: host seconds the scanned driver spent on the round's CUDA graph
+    #: (warm-up round, capture, instantiation); None where none was captured
+    capture_s: Optional[float] = None
 
     def final(self, key: str) -> float:
         return self.history[key][-1]
@@ -109,31 +128,52 @@ def _on(x, dev) -> Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
 
-def _run_mocha(data: FederatedData, reg: Regularizer, cfg: MochaConfig,
-               omega0=None,
-               budget_fn: Optional[Callable[[Tensor, Tensor, int],
-                                            Tensor]] = None,
-               engine=None,
-               trace: Optional[SystemsTrace] = None,
-               state0: Optional[DualState] = None) -> RunResult:
-    """Run Algorithm 1 on the configured round engine.
+@dataclasses.dataclass
+class _Run:
+    """What both drivers start from: the data on the run's device, the
+    engine bound to it, the first dual state, Omega and its coupling
+    terms."""
 
-    ``budget_fn(key, n_t, round) -> (m,) int budgets`` overrides the
-    BudgetConfig sampler; ``engine`` overrides ``cfg.engine`` (a name,
-    class or instance); ``trace`` continues a SystemsTrace; ``omega0`` and
-    ``state0`` (alpha, v with v = X alpha) warm-start the run.  The data
-    and the warm starts move to ``cfg.device``.
-    """
+    data: FederatedData
+    reg: Regularizer
+    cfg: MochaConfig
+    loss: Loss
+    eng: RoundEngine
+    trace: SystemsTrace
+    state: DualState
+    omega: Tensor
+    abar: Tensor
+    K: Tensor
+    q_t: Tensor
+    max_steps: int
+    gram: Optional[bool]
+
+    def omega_step(self, v: Tensor):
+        """Algorithm 1's Omega update from W(v).  Omega changed, so the
+        dual problem did: v = X alpha stays, W(alpha) and the objectives
+        take the new K.  Returns the new (K, q_t)."""
+        W = dual_mod.primal_weights(self.K, v)
+        self.omega = self.reg.update_omega(W, self.omega)
+        self.abar, self.K, self.q_t = _coupling_terms(
+            self.reg, self.omega, self.cfg.gamma, self.cfg.per_task_sigma,
+            self.data.m)
+        return self.K, self.q_t
+
+
+def _start(data: FederatedData, reg: Regularizer, cfg: MochaConfig,
+           omega0=None, engine=None, trace: Optional[SystemsTrace] = None,
+           state0: Optional[DualState] = None) -> _Run:
+    """Check the configuration and set a run up (see ``_run_mocha``)."""
     loss = get_loss(cfg.loss)
     validate_assumption2(cfg.budget)
     if cfg.driver not in DRIVERS:
         raise ValueError(f"driver {cfg.driver!r} not in {DRIVERS}")
-    if cfg.driver == "scan":
-        raise NotImplementedError(
-            "driver='scan' is not in the port yet (ROADMAP.md Queue 1 item "
-            "8: the pre-sampled driver); use driver='auto' or 'loop'")
     dev = resolve_device(cfg.device)
     eng = get_engine(engine if engine is not None else cfg.engine)
+    if cfg.driver == "scan" and not eng.supports_scan:
+        raise ValueError(
+            f"engine {eng.name!r} does not support the scanned driver; "
+            "use driver='auto' or 'loop'")
     # the row-norm table is computed once per run and read by every round
     data = dual_mod.with_xnorm2(data.to(dev))
     m = data.m
@@ -149,14 +189,34 @@ def _run_mocha(data: FederatedData, reg: Regularizer, cfg: MochaConfig,
     if trace is None:
         trace = SystemsTrace(m, data.d,
                              cfg.systems or SystemsConfig(network=cfg.network))
-    return _run_loop(data, reg, cfg, loss, eng, trace, state, omega, abar, K,
-                     q_t, max_steps, budget_fn)
+    return _Run(data, reg, cfg, loss, eng, trace, state, omega, abar, K, q_t,
+                max_steps, gram)
 
 
-def _run_loop(data, reg, cfg, loss, eng: RoundEngine, trace, state, omega,
-              abar, K, q_t, max_steps, budget_fn) -> RunResult:
+def _run_mocha(data: FederatedData, reg: Regularizer, cfg: MochaConfig,
+               omega0=None,
+               budget_fn: Optional[Callable[[Tensor, Tensor, int],
+                                            Tensor]] = None,
+               engine=None,
+               trace: Optional[SystemsTrace] = None,
+               state0: Optional[DualState] = None) -> RunResult:
+    """Run Algorithm 1 on the configured round engine.
+
+    ``budget_fn(key, n_t, round) -> (m,) int budgets`` overrides the
+    BudgetConfig sampler; ``engine`` overrides ``cfg.engine`` (a name,
+    class or instance); ``trace`` continues a SystemsTrace; ``omega0`` and
+    ``state0`` (alpha, v with v = X alpha) warm-start the run.  The data
+    and the warm starts move to ``cfg.device``.
+    """
+    run = _start(data, reg, cfg, omega0, engine, trace, state0)
+    if cfg.driver != "loop" and run.eng.supports_scan:
+        return _run_scanned(run, budget_fn)
+    return _run_loop(run, budget_fn)
+
+
+def _run_loop(run: _Run, budget_fn) -> RunResult:
     """The round loop: one engine call and one host read per round."""
-    m = data.m
+    cfg, data, trace, state = run.cfg, run.data, run.trace, run.state
     key = prng.PRNGKey(cfg.seed, device=data.device)
     record = _record_rounds(cfg.rounds, cfg.record_every)
     history: Dict[str, List[float]] = {k: [] for k in HISTORY_KEYS}
@@ -168,27 +228,24 @@ def _run_loop(data, reg, cfg, loss, eng: RoundEngine, trace, state, omega,
             budgets = budget_fn(k_budget, data.n_t, h)
         else:
             budgets = round_budgets(cfg.budget, k_budget, data.n_t)
-        budgets = torch.clamp_max(budgets, max_steps)
+        budgets = torch.clamp_max(budgets, run.max_steps)
         cap = trace.begin_round()
         if cap is not None:   # semi_sync: fit the work to the clock cycle
-            cap = np.minimum(cap, max_steps)
+            cap = np.minimum(cap, run.max_steps)
             budgets = torch.minimum(budgets, torch.as_tensor(
                 cap, dtype=budgets.dtype, device=budgets.device))
-        state = eng.round(state, K, q_t, budgets, cfg.gamma, k_round)
+        state = run.eng.round(state, run.K, run.q_t, budgets, cfg.gamma,
+                              k_round)
         steps_np = budgets.cpu().numpy()
         trace.commit(steps_np)
         budgets_log.append(steps_np.astype(np.int64))
 
         if cfg.omega_update_every and (h + 1) % cfg.omega_update_every == 0:
-            W = dual_mod.primal_weights(K, state.v)
-            omega = reg.update_omega(W, omega)
-            # Omega changed, so the dual problem did: v = X alpha stays,
-            # W(alpha) and the objectives take the new K
-            abar, K, q_t = _coupling_terms(reg, omega, cfg.gamma,
-                                           cfg.per_task_sigma, m)
+            run.omega_step(state.v)
 
         if record[h]:
-            dual_val, primal_val, gap = _metrics(loss, data, state, abar, K)
+            dual_val, primal_val, gap = _metrics(run.loss, data, state,
+                                                 run.abar, run.K)
             history["round"].append(h)
             history["dual"].append(float(dual_val))
             history["primal"].append(float(primal_val))
@@ -196,10 +253,181 @@ def _run_loop(data, reg, cfg, loss, eng: RoundEngine, trace, state, omega,
             history["time"].append(trace.elapsed_s)
             history["round_max_steps"].append(int(steps_np.max()))
 
-    W = dual_mod.primal_weights(K, state.v)
-    return RunResult(W=W.cpu().numpy(), omega=omega.cpu().numpy(),
+    W = dual_mod.primal_weights(run.K, state.v)
+    return RunResult(W=W.cpu().numpy(), omega=run.omega.cpu().numpy(),
                      state=state, history=history, trace=trace,
                      round_budgets=np.stack(budgets_log))
+
+
+class RoundProgram:
+    """One round over static buffers, run once per round.
+
+    ``step(state, inputs) -> state`` is a round of tensors that reads
+    nothing back to the host.  The program holds its own copy of the state
+    (a tuple of tensors) and of every named input; ``run(**inputs)`` copies
+    new values into those input buffers (``copy_``: a buffer is never
+    rebound, so a captured graph reads the new values) and runs the round,
+    which writes the new state into the state buffers.
+
+    On a CUDA device the round is captured once as a ``torch.cuda.CUDAGraph``
+    and ``run`` replays it.  A warm-up round runs first on a side stream and
+    its effect on the state is undone; a capture that fails raises.  On the
+    CPU the round runs eagerly.  ``capture_s`` is the host time of warm-up,
+    capture and instantiation (None on the CPU).
+    """
+
+    def __init__(self, step: Callable, state: Sequence[Tensor],
+                 inputs: Dict[str, Tensor]):
+        self.step = step
+        self.state = tuple(t.clone() for t in state)
+        self.inputs = {k: v.clone() for k, v in inputs.items()}
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.capture_s: Optional[float] = None
+        if self.state[0].device.type == "cuda":
+            self._capture(self.state[0].device)
+
+    def _round(self) -> None:
+        for buf, new in zip(self.state, self.step(self.state, self.inputs)):
+            buf.copy_(new)
+
+    def _capture(self, dev: torch.device) -> None:
+        t0 = time.perf_counter()
+        before = tuple(t.clone() for t in self.state)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._round()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for buf, old in zip(self.state, before):
+            buf.copy_(old)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._round()
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def set(self, **inputs: Tensor) -> None:
+        """Copy new values into the named input buffers."""
+        for name, value in inputs.items():
+            self.inputs[name].copy_(value)
+
+    def run(self, **inputs: Tensor) -> None:
+        """``set(**inputs)``, then one round."""
+        self.set(**inputs)
+        if self.graph is None:
+            self._round()
+        else:
+            self.graph.replay()
+
+
+def presample_round_inputs(cfg: MochaConfig, key: Tensor, n_t: Tensor,
+                           max_steps: int, caps: Optional[np.ndarray],
+                           budget_fn=None):
+    """The whole run's (rounds, 2) round keys and (rounds, m) budgets, as
+    the loop driver would draw them round by round: budgets clamped to
+    ``max_steps``, then to the semi_sync caps (clamped to ``max_steps`` on
+    the host before the cast, as the loop does)."""
+    budget_keys, round_keys = round_key_schedule(key, cfg.rounds)
+    if budget_fn is not None:
+        budgets = torch.stack([budget_fn(budget_keys[h], n_t, h)
+                               for h in range(cfg.rounds)])
+    else:
+        budgets = presample_budgets(cfg.budget, budget_keys, n_t)
+    budgets = torch.clamp_max(budgets, max_steps)
+    if caps is not None:
+        caps = np.minimum(caps, max_steps)
+        budgets = torch.minimum(budgets, torch.as_tensor(
+            caps, dtype=budgets.dtype, device=budgets.device))
+    return round_keys, budgets
+
+
+def _round_program(round_fn: Callable, loss: Loss, max_steps: int,
+                   gram: Optional[bool], data: FederatedData,
+                   state: DualState, gamma: float, key: Tensor,
+                   budgets: Tensor, K: Tensor, q_t: Tensor) -> RoundProgram:
+    """A ``RoundProgram`` of ``round_fn`` (an engine's ``scan_round_fn``)
+    on ``data``, from ``state``, its inputs set to the first round's key,
+    budgets, K and q_t."""
+    def step(st, x):
+        return round_fn(loss, max_steps, gram, data, DualState(*st), x["K"],
+                        x["q_t"], x["budgets"], gamma, x["key"])
+
+    return RoundProgram(step, state, dict(key=key, budgets=budgets, K=K,
+                                          q_t=q_t))
+
+
+def _replay_rounds(prog: RoundProgram, round_keys: Tensor,
+                   budgets: Tensor, every: int,
+                   omega_step: Optional[Callable] = None,
+                   after_round: Optional[Callable[[int], None]] = None
+                   ) -> None:
+    """Run ``prog`` once per row of the pre-sampled inputs.  After every
+    ``every``-th round ``omega_step(v)`` ends a segment: it runs eagerly
+    between two runs (its host reads are legal there) and returns the new
+    K and q_t, which are copied into the program's buffers.  Then
+    ``after_round(h)``."""
+    for h in range(len(round_keys)):
+        prog.run(key=round_keys[h], budgets=budgets[h])
+        if every and (h + 1) % every == 0:
+            K, q_t = omega_step(prog.state[1])
+            prog.set(K=K, q_t=q_t)
+        if after_round is not None:
+            after_round(h)
+
+
+def _scanned_program(run: _Run, budget_fn=None):
+    """The pre-sampled driver's inputs and program: the run's (rounds, 2)
+    round keys and (rounds, m) budgets, and the ``RoundProgram`` of the
+    engine's round function on them."""
+    cfg = run.cfg
+    round_keys, budgets = presample_round_inputs(
+        cfg, prng.PRNGKey(cfg.seed, device=run.data.device), run.data.n_t,
+        run.max_steps, run.trace.presample_caps(cfg.rounds), budget_fn)
+    prog = _round_program(run.eng.scan_round_fn(), run.loss, run.max_steps,
+                          run.gram, run.data, run.state, cfg.gamma,
+                          round_keys[0], budgets[0], run.K, run.q_t)
+    return round_keys, budgets, prog
+
+
+def _run_scanned(run: _Run, budget_fn) -> RunResult:
+    """The pre-sampled driver: every round through one ``RoundProgram``.
+
+    A recorded round's metrics go into a device buffer; an Omega round's
+    are taken after the refresh, as the loop takes them.
+    """
+    cfg, trace = run.cfg, run.trace
+    rounds = cfg.rounds
+    round_keys, budgets, prog = _scanned_program(run, budget_fn)
+    record = _record_rounds(rounds, cfg.record_every)
+    rows = torch.zeros((rounds, 3), dtype=run.K.dtype, device=run.K.device)
+
+    def write_row(h):
+        if record[h]:
+            rows[h] = torch.stack(_metrics(run.loss, run.data,
+                                           DualState(*prog.state), run.abar,
+                                           run.K))
+
+    _replay_rounds(prog, round_keys, budgets, cfg.omega_update_every,
+                   run.omega_step, write_row)
+
+    # the one host transfer: executed budgets and the metric rows
+    executed = budgets.cpu().numpy().astype(np.int64)
+    rows_np = rows.cpu().numpy()
+    trace.replay(executed)
+    times = trace.times()[-rounds:]
+    history: Dict[str, List[float]] = {k: [] for k in HISTORY_KEYS}
+    for h in np.flatnonzero(record):
+        history["round"].append(int(h))
+        history["dual"].append(float(rows_np[h, 0]))
+        history["primal"].append(float(rows_np[h, 1]))
+        history["gap"].append(float(rows_np[h, 2]))
+        history["time"].append(float(times[h]))
+        history["round_max_steps"].append(int(executed[h].max()))
+    state = DualState(*prog.state)
+    W = dual_mod.primal_weights(run.K, state.v)
+    return RunResult(W=W.cpu().numpy(), omega=run.omega.cpu().numpy(),
+                     state=state, history=history, trace=trace,
+                     round_budgets=executed, capture_s=prog.capture_s)
 
 
 def run_cocoa(data: FederatedData, reg: Regularizer, cfg: MochaConfig,

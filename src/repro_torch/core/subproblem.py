@@ -125,7 +125,8 @@ def batched_local_sdca_idx(loss: Loss, X: Tensor, y: Tensor, mask: Tensor,
                            alpha: Tensor, W: Tensor, q_t: Tensor,
                            budgets: Tensor, idx: Tensor, max_steps: int,
                            xnorm2: Optional[Tensor] = None,
-                           gram: Optional[bool] = None
+                           gram: Optional[bool] = None,
+                           static: bool = False
                            ) -> Tuple[Tensor, Tensor]:
     """SDCA local solves of all m tasks over explicit coordinate streams.
 
@@ -133,8 +134,12 @@ def batched_local_sdca_idx(loss: Loss, X: Tensor, y: Tensor, mask: Tensor,
     int; idx (m, max_steps) int.  Returns (dalpha (m, n), u (m, d)) with
     u = X_t^T dalpha_t accumulated from the per-chunk column sums.
 
-    Chunks past every task's budget are skipped: all their steps are dead,
-    so they would add exact zeros.
+    By default chunks past every task's budget are skipped, which reads the
+    largest budget on the host.  ``static=True`` runs all
+    ``ceil(max_steps / C)`` chunks with no host read (what a captured CUDA
+    graph replays) and gives the same bits: every step of a dead chunk is
+    masked, and ``sdca_delta`` is finite there (a padded row has x = 0 and
+    y = 0; the divisors are clamped), so each adds an exact zero.
     """
     m, n, d = X.shape
     if xnorm2 is None:
@@ -142,7 +147,10 @@ def batched_local_sdca_idx(loss: Loss, X: Tensor, y: Tensor, mask: Tensor,
     gram, C = _solver_plan(d, max_steps, gram)
     budgets = torch.clamp_max(budgets.to(torch.int64), max_steps)
     idx_c = chunk_idx_stream(idx.to(torch.int64), max_steps, C)
-    n_live = -(-int(budgets.max()) // C) if m else 0
+    if static:
+        n_live = idx_c.shape[-2]
+    else:
+        n_live = -(-int(budgets.max()) // C) if m else 0
     rows = torch.arange(m, device=X.device)
     q = q_t.to(X.dtype)
     dalpha = torch.zeros((m, n), dtype=X.dtype, device=X.device)
@@ -210,11 +218,12 @@ def batched_local_sdca(loss: Loss, X: Tensor, y: Tensor, mask: Tensor,
                        alpha: Tensor, W: Tensor, q_t: Tensor,
                        budgets: Tensor, keys: Tensor, max_steps: int,
                        xnorm2: Optional[Tensor] = None,
-                       gram: Optional[bool] = None) -> Tuple[Tensor, Tensor]:
+                       gram: Optional[bool] = None,
+                       static: bool = False) -> Tuple[Tensor, Tensor]:
     """``local_sdca`` for all tasks: keys (m, 2), one stream per task."""
     idx = _draw_coordinates(mask, keys, max_steps)
     return batched_local_sdca_idx(loss, X, y, mask, alpha, W, q_t, budgets,
-                                  idx, max_steps, xnorm2, gram)
+                                  idx, max_steps, xnorm2, gram, static)
 
 
 def solve_exact(loss: Loss, X_t: Tensor, y_t: Tensor, mask_t: Tensor,

@@ -125,6 +125,14 @@ def make_federation(spec: FederationSpec, seed: int = 0,
     return build(n_train), build(n_test)
 
 
+def make_global_problem(data: FederatedData) -> FederatedData:
+    """Pool all tasks into one (the "global model" baseline of Table 1)."""
+    m, n, d = data.X.shape
+    return FederatedData(X=data.X.reshape(1, m * n, d),
+                         y=data.y.reshape(1, m * n),
+                         mask=data.mask.reshape(1, m * n))
+
+
 def tiny_problem(m: int = 4, n: int = 24, d: int = 6, seed: int = 0,
                  clusters: int = 2, device: Optional[str] = None,
                  ) -> Tuple[FederatedData, FederatedData]:

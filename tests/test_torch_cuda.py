@@ -105,10 +105,16 @@ def test_sdca_kernel_budgets_widths_and_duplicates(m, n, d, steps, gram,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["vehicle_sensor", "human_activity"])
-def test_sdca_kernel_at_federation_shapes(name):
+@pytest.mark.parametrize("name,pooled,mid_chunk", [
+    ("vehicle_sensor", False, False), ("human_activity", False, False),
+    ("vehicle_sensor", True, False), ("vehicle_sensor", True, True)],
+    ids=["vehicle_sensor", "human_activity", "vehicle_sensor_global",
+         "vehicle_sensor_global_mid_chunk"])
+def test_sdca_kernel_at_federation_shapes(name, pooled, mid_chunk):
     """The MOCHA main path's shapes (Vehicle Sensor: gram, Human Activity:
-    carry) with one-pass budgets and a feasible alpha, against the plain
+    carry) and the "global" kind's (every Vehicle Sensor client's rows in
+    one task, ~1,025 chunks in one block) with one-pass budgets, or 3/8 of
+    a pass ending mid-chunk, and a feasible alpha, against the plain
     version within 2e-5 x max(1, max |plain|) (chip_smoke's KERNEL_TOL)."""
     from repro_torch.core.dual import with_xnorm2
     from repro_torch.data import synthetic
@@ -116,8 +122,10 @@ def test_sdca_kernel_at_federation_shapes(name):
     from repro_torch.utils import prng
     dev = _card()
     spec = getattr(synthetic, name.upper())
-    data = with_xnorm2(synthetic.make_federation(spec, seed=0,
-                                                 device=dev)[0])
+    data = synthetic.make_federation(spec, seed=0, device=dev)[0]
+    if pooled:
+        data = synthetic.make_global_problem(data)
+    data = with_xnorm2(data)
     m, n, d = data.X.shape
     rng = np.random.default_rng(1)
     alpha = data.y * data.mask * torch.from_numpy(
@@ -126,6 +134,9 @@ def test_sdca_kernel_at_federation_shapes(name):
         np.float32)).to(dev)
     q = torch.from_numpy(rng.uniform(0.5, 2.0, m).astype(np.float32)).to(dev)
     budgets = torch.round(data.n_t).to(torch.int32)
+    if mid_chunk:   # none a multiple of the chunk (32 in gram mode)
+        budgets = (3 * budgets) // 8
+        budgets = budgets + (budgets % 16 == 0).to(budgets.dtype)
     idx = draw_coordinates(prng.split(prng.PRNGKey(1, device=dev), m),
                            data.n_t, n, n)
     args = (data.X, data.y, data.mask, alpha.contiguous(), W, q, budgets, idx)
@@ -371,3 +382,143 @@ def test_attention_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         DA.decode_attention(q[:, 0], cache, cache,
                             torch.ones(1, dtype=torch.int32, device=dev))
+
+
+# -- the pre-sampled driver, the sweep and the kernel grid on the card -------
+
+def _mocha_exp(train, reg, *, engine="local", driver="auto", rounds=6,
+               every=3):
+    from repro_torch.api import Exec, Experiment, Method, Problem
+    return Experiment(problem=Problem(train=train),
+                      method=Method(regularizers=(reg,), rounds=rounds,
+                                    omega_update_every=every),
+                      exec=Exec(engine=engine, driver=driver))
+
+
+def _spec(**kw):
+    from repro_torch.data.synthetic import FederationSpec
+    return FederationSpec(**dict(dict(name="card", m=5, d=40, n_min=80,
+                                      n_max=150, clusters=2), **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 200])
+def test_graph_replay_matches_eager_rounds_bitwise(d):
+    """The captured round, replayed, against the same round function run
+    eagerly on the same inputs, round by round."""
+    from repro_torch.core import HINGE, RoundProgram, with_xnorm2
+    from repro_torch.core.engine import _scan_local_round
+    from repro_torch.core.dual import DualState, init_state
+    from repro_torch.data.synthetic import make_federation
+    from repro_torch.utils import prng
+    dev = _card()
+    data = with_xnorm2(make_federation(_spec(d=d), seed=0, device=dev)[0])
+    n_steps = data.n_max
+    K = torch.eye(data.m, device=dev) * 0.3 + 0.05
+    q_t = torch.full((data.m,), 0.4, device=dev)
+
+    def step(st, x):
+        return _scan_local_round(HINGE, n_steps, None, data, DualState(*st),
+                                 x["K"], x["q_t"], x["budgets"], 1.0,
+                                 x["key"])
+
+    keys = prng.split(prng.PRNGKey(0, device=dev), 4)
+    budgets = torch.round(data.n_t).to(torch.int32)
+    rows = [budgets, budgets // 3, budgets // 2 + 1, budgets * 0]
+    prog = RoundProgram(step, init_state(data),
+                        dict(key=keys[0], budgets=rows[0], K=K, q_t=q_t))
+    assert prog.graph is not None and prog.capture_s > 0
+    eager = tuple(init_state(data))
+    for h in range(4):
+        prog.run(key=keys[h], budgets=rows[h])
+        eager = step(eager, dict(key=keys[h], budgets=rows[h], K=K, q_t=q_t))
+        torch.cuda.synchronize()
+        for a, b in zip(prog.state, eager):
+            assert torch.equal(a, b), h
+
+
+@pytest.mark.cuda
+def test_graph_reads_the_k_buffer_after_an_omega_step():
+    """``set`` writes the new K into the captured buffer: the replay then
+    agrees with an eager round on the new K and not with one on the old.
+    A rebound K would leave the graph reading the old one."""
+    from repro_torch.core import RoundProgram
+    dev = _card()
+    v = torch.randn(6, 8, device=dev)
+
+    def step(st, x):
+        return (x["K"] @ v + st[0],)
+
+    K_old = torch.eye(6, device=dev)
+    K_new = torch.randn(6, 6, device=dev)
+    prog = RoundProgram(step, (torch.zeros(6, 8, device=dev),), dict(K=K_old))
+    prog.run()
+    after_old = prog.state[0].clone()
+    prog.set(K=K_new)
+    prog.run()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(prog.state[0], K_new @ v + after_old)
+    assert not torch.allclose(prog.state[0], K_old @ v + after_old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 200])
+def test_scanned_run_matches_loop_bitwise_on_the_card(d):
+    from repro_torch.core import Clustered
+    from repro_torch.data.synthetic import make_federation
+    dev = _card()
+    train = make_federation(_spec(d=d), seed=1, device=dev)[0]
+    loop = _mocha_exp(train, Clustered(k=2), driver="loop").run(0)
+    scan = _mocha_exp(train, Clustered(k=2), driver="scan").run(0)
+    assert scan.provenance["driver"] == "scan"
+    assert scan.result.capture_s > 0
+    assert loop.history == scan.history
+    for k in ("W", "omega", "round_budgets"):
+        np.testing.assert_array_equal(getattr(loop.result, k),
+                                      getattr(scan.result, k))
+
+
+@pytest.mark.cuda
+def test_sweep_cell_matches_its_single_run_on_the_card():
+    """A cell of the batched sweep against the single run of that cell:
+    objectives within rtol 1e-5 / atol 1e-4, W and Omega within rtol 1e-4
+    / atol 1e-5 (batched products round in another order)."""
+    from repro_torch.api import Exec, Experiment, Method, Problem
+    from repro_torch.core import Probabilistic
+    from repro_torch.data.synthetic import make_federation
+    dev = _card()
+    trains = [make_federation(_spec(), seed=s, device=dev)[0]
+              for s in (0, 1)]
+    regs = (Probabilistic(lam=0.01, sigma2=10.0),
+            Probabilistic(lam=1.0, sigma2=10.0))
+    rep = Experiment(problem=Problem(train=trains),
+                     method=Method(regularizers=regs, rounds=6,
+                                   omega_update_every=3)).run((0, 1))
+    assert rep.provenance["path"] == "sweep"
+    for r, s in ((0, 1), (1, 0)):
+        one = _mocha_exp(trains[s], regs[r]).run(s)
+        for k in ("dual", "primal", "gap"):
+            np.testing.assert_allclose(getattr(rep.result, k)[r, s],
+                                       one.final(k), rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(rep.result.W[r, s], one.result.W,
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(rep.result.omega[r, s], one.result.omega,
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_grid_launches_once_per_round_per_cell():
+    from repro_torch.api import Exec, Experiment, Method, Problem
+    from repro_torch.core import Probabilistic
+    from repro_torch.data.synthetic import make_federation
+    dev = _card()
+    trains = [make_federation(_spec(), seed=s, device=dev)[0]
+              for s in (0, 1, 2)]
+    regs = tuple(Probabilistic(lam=lam) for lam in (0.01, 1.0))
+    K.reset_counts()
+    rep = Experiment(problem=Problem(train=trains),
+                     method=Method(regularizers=regs, rounds=4,
+                                   omega_update_every=2),
+                     exec=Exec(engine="kernel")).run(0)
+    assert rep.provenance["path"] == "grid"
+    assert K.COUNTS["sdca_local_solve"] == 4 * 2 * 3

@@ -77,25 +77,22 @@ def test_default_device_is_the_card(entry):
 
 
 def test_unported_paths_name_their_roadmap_item():
-    from repro_torch.api import (Eval, Exec, Experiment, Method, Problem,
-                                 Systems)
-    from repro_torch.core import MeanRegularized
+    from repro_torch.api import Eval, Exec, Experiment, Problem, Systems
     from repro_torch.data.synthetic import tiny_problem
     train = tiny_problem(device="cpu")[0]
-    cases = [dict(eval=Eval(holdout=train)), dict(exec=Exec(telemetry=True,
-                                                            device="cpu")),
+    cases = [dict(exec=Exec(telemetry=True, device="cpu")),
              dict(exec=Exec(cohort=8, device="cpu")),
              dict(systems=Systems(dropout=0.1)),
-             dict(exec=Exec(engine="sharded", device="cpu")),
-             dict(exec=Exec(driver="scan", device="cpu")),
-             dict(method=Method(regularizers=(MeanRegularized(),
-                                              MeanRegularized(0.5))))]
+             dict(systems=Systems(faults=object())),
+             dict(eval=Eval(holdout_clients=8)),
+             dict(exec=Exec(engine="sharded", device="cpu"))]
     for kw in cases:
         kw.setdefault("exec", Exec(device="cpu"))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Experiment(problem=Problem(train=train), **kw).run(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Experiment(problem=Problem(train=[train, train])).route()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item "
+                                                  "11"):
+        Experiment(problem=Problem(population=object())).route()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Experiment(problem=Problem(train=train)).serve()
 
