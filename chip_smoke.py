@@ -17,7 +17,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    wider than the registers), duplicate-heavy streams, the "global"
    kind's one pooled task of every Vehicle Sensor client's rows (one pass
    and budgets ending mid-chunk), and
-   budget 0 and mask 0 (exact no-ops); flash and decode at the cases of
+   budget 0 and mask 0 (exact no-ops), and the cohort path's shape (K 256
+   x n_pad 64 x d 32, dropped slots at budget 0, padded rows at mask 0,
+   both exactly 0); flash and decode at the cases of
    tests/test_kernels.py, a ragged S and T, and SmolLM-360M's shapes, in
    f32 and bf16; flash f32 at every head_dim with a ragged S, windows and
    GQA; flash bf16 (wgmma + TMA) at head_dim 128 and 256 and with
@@ -39,7 +41,20 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    just before and read just after), every cell held against the sweep's,
    and the "global" kind through the kernel grid; (d) Mb-SGD and Mb-SDCA
    on the card against the CPU;
-6. the LM main path: SmolLM-360M at full width (random weights from seed
+6. the cross-device cohort path (``phase_cohort_path``), with the protocol
+   constants of ``benchmarks/cohort_scale.py`` and ``faults_scale.py``:
+   (a) CROSS_DEVICE_1M (10^6 clients) at K 64 and 256, 8 blocks, overlap 1
+   and 4 at staleness 0, on the local engine (one captured round program a
+   run, counted) and the kernel engine (one SDCA launch a block, counters
+   set to 0 just before each run and read just after), cold and warm
+   walls, blocks/s and clients/s, overlap 4 equal to overlap 1 bit for bit,
+   the kernel engine's history against the local engine's; (b) faults at
+   f = 0.25 with degradation inside the 10% envelope of the fault-free
+   primal, and a run crashed at block 6 and resumed from its checkpoints
+   equal to the uninterrupted run bit for bit; (c) a small population on
+   the card against the CPU with telemetry on, the Chrome trace validated;
+   the SDCA kernel timed at the K 256 shape;
+7. the LM main path: SmolLM-360M at full width (random weights from seed
    0) through ``repro_torch.serve.Engine.generate``, batch 8, prompt 1024,
    32 new tokens, in f32 and bf16, through the kernels (counters set to 0
    just before each generate and read just after: 32 flash and 992 decode
@@ -48,20 +63,21 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    plain route swaps the plain versions into
    ``repro_torch.models.layers`` for the comparison); a reduced SmolLM on
    the card against the CPU;
-7. time the SDCA kernel (CUDA events over many launches) beside its bound
+8. time the SDCA kernel (CUDA events over many launches) beside its bound
    and its chain floor (a model printed on the timing line: chain steps x
    one dependent step counted from the kernel's instructions at assumed
    latencies), its plain version and the wall time per
    round of both engines on the loop driver; profile three kernel-engine rounds
    (``torch.profiler``);
-8. time flash and decode at SmolLM-360M's shapes (kernel, plain version,
+9. time flash and decode at SmolLM-360M's shapes (kernel, plain version,
    ``scaled_dot_product_attention``) beside their bounds, with each
    kernel's design and share of the bound; prefill ms and decode ms per
    token of both routes; profile a prefill and decode steps in f32 and
    bf16, each attention kernel's device time per call beside its bound;
-9. profile two rounds of each driver on the local engine at Vehicle
-   Sensor: replays of the pre-sampled driver's own program and a loop
-   run (device kernels and busy share per round), last.
+10. profile two warm blocks of the cohort path at K 256 on each engine
+   (``phase_cohort_profile``), then two rounds of each driver on the local
+   engine at Vehicle Sensor: replays of the pre-sampled driver's own
+   program and a loop run (device kernels and busy share per round), last.
 
 It prints the kernel table as JSON, the card line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Exits nonzero,
@@ -302,6 +318,22 @@ def phase_kernels():
                      KERNEL_TOL)
         for label, mid in (("one pass", False),
                            ("budgets ending mid-chunk", True)))
+    # the cohort path's shape: K 256 clients of CROSS_DEVICE_1M packed to
+    # n_pad 64, d 32 (gram), 10% of the slots dropped to budget 0 and the
+    # rows past each client's n_t at mask 0 (phase_cohort_path)
+    case = cohort_kernel_case(256)
+    errs["cohort"] = check_kernel("cross_device_1m K=256 n_pad=64 d=32, "
+                                  "dropped slots and padded rows", case,
+                                  KERNEL_TOL)
+    from repro_torch.kernels.sdca import sdca_local_solve
+    da, u = sdca_local_solve(**case)
+    dropped = case["budgets"] == 0
+    if not dropped.any() or torch.any(da[dropped]) or torch.any(
+            u[dropped]) or torch.any(da * (1 - case["mask"])):
+        raise AssertionError("cohort shape: a dropped slot or a padded row "
+                             "moved")
+    print("kernel [cohort shape]: dropped slots (budget 0) and padded rows "
+          "(mask 0) exactly 0", flush=True)
     for spec in (VEHICLE_SENSOR, HUMAN_ACTIVITY):
         for kw in ("zero_budget", "zero_mask"):
             check_kernel(f"{spec.name}, {kw} (exact no-op)",
@@ -657,6 +689,364 @@ def phase_eval_path():
     print(f"eval path: {wall:.1f} s", flush=True)
     return dict(drivers=drivers, grids=grids, minibatch_primal=mb,
                 wall_s=wall)
+
+
+# ---------------------------------------------------------------------------
+# The cross-device cohort path: population, sampler, packer, ClusterOmega and
+# the fault-tolerant block loop, through the SDCA kernel
+# ---------------------------------------------------------------------------
+
+#: the cohort_scale protocol (benchmarks/cohort_scale.py: SYSTEMS, BASE at
+#: m = 10^6 (CROSS_DEVICE_1M), FULL_K, ROUNDS, OVERLAP_DEPTH; weighted
+#: sampler, dropout 0.1, Probabilistic(1e-2, 10), hinge, one pass)
+COHORT_KS = (64, 256)
+COHORT_BLOCKS = 8
+COHORT_OVERLAP = 4
+#: the faults_scale protocol (benchmarks/faults_scale.py: SPEC, ROUNDS,
+#: COHORT, MAX_RETRIES, ENVELOPE, CRASH_BLOCK, CHECKPOINT_EVERY; the
+#: acceptance fault rate f = 0.25, pack faults at f / 2, fold delays at f)
+FAULT_SPEC = dict(name="faults_bench", m=2000, d=16, n_min=16, n_max=48,
+                  clusters=3)
+FAULT_BLOCKS, FAULT_COHORT, FAULT_RETRIES = 10, 32, 2
+FAULT_RATE, FAULT_ENVELOPE = 0.25, 0.10
+CRASH_BLOCK, CHECKPOINT_EVERY = 6, 2
+#: the small reference population (tests/test_obs.py's configuration)
+REF_SPEC = dict(name="t_obs", m=240, d=10, n_min=8, n_max=20, clusters=3)
+
+
+def cohort_kernel_case(K_, seed=0, drop=0.1, device="cuda"):
+    """The SDCA kernel's inputs at the cohort path's shape: K_ clients of
+    CROSS_DEVICE_1M packed to n_pad 64 (d 32, gram mode; rows past a
+    client's n_t at mask 0), a warm-start alpha, one-pass budgets with a
+    ``drop`` share of the slots at budget 0 (dropped clients), streams from
+    the port's PRNG; ``kernel_case``'s layout."""
+    from repro_torch.cohort import CROSS_DEVICE_1M, Population, pack_cohort
+    from repro_torch.kernels.sdca import draw_coordinates
+    from repro_torch.utils import prng
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(CROSS_DEVICE_1M.m, K_, replace=False)
+    data = pack_cohort(Population(CROSS_DEVICE_1M), ids, device=device)
+    m, n, d = data.X.shape
+    dev = data.X.device
+
+    def on(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    budgets = torch.round(data.n_t).to(torch.int32)
+    budgets[torch.from_numpy(rng.random(m) < drop).to(dev)] = 0
+    return dict(X=data.X, y=data.y, mask=data.mask,
+                alpha=(data.y * data.mask
+                       * on(rng.uniform(0, 1, (m, n)))).contiguous(),
+                W=on(0.1 * rng.normal(size=(m, d))),
+                q_t=on(rng.uniform(0.5, 2.0, m)), budgets=budgets,
+                idx=draw_coordinates(prng.split(prng.PRNGKey(
+                    seed, device=dev), m), data.n_t, n, n),
+                max_steps=n, gram=None, xnorm2=data.xnorm2)
+
+
+def _cohort_exp(pop, K_, engine, overlap, rounds=COHORT_BLOCKS, **ex):
+    """The cohort_scale experiment at one (K, engine, overlap)."""
+    from repro_torch.api import Eval, Exec, Experiment, Method, Problem, \
+        Systems
+    from repro_torch.core import BudgetConfig, Probabilistic, SystemsConfig
+    return Experiment(
+        problem=Problem(population=pop),
+        method=Method(loss="hinge", regularizers=(
+            Probabilistic(lam=1e-2, sigma2=10.0),), rounds=rounds,
+            budget=BudgetConfig(passes=1.0)),
+        systems=Systems(config=SystemsConfig(network="lte", rate_lo=0.5,
+                                             rate_hi=2.0),
+                        sampler="weighted", dropout=0.1),
+        exec=Exec(engine=engine, cohort=K_, clusters=pop.spec.clusters,
+                  overlap=overlap, staleness=0, **ex),
+        eval=Eval(record_every=1))
+
+
+def _same_cohort_bits(label, a, b):
+    if a.history != b.history or not all(
+            np.array_equal(getattr(a, k), getattr(b, k))
+            for k in ("centroids", "omega_k", "assign", "participation")):
+        raise AssertionError(f"{label}: the two runs' bits differ")
+
+
+def cohort_scale(card):
+    """(a) CROSS_DEVICE_1M at K 64 and 256, 8 blocks, overlap 1 and 4 at
+    staleness 0, on the local engine (pre-sampled driver: one captured
+    round program a run) and the kernel engine (one SDCA launch per block,
+    counted); cold and warm walls, overlap 4 against overlap 1 bit for
+    bit, the kernel engine's history against the local engine's."""
+    from repro_torch.cohort import CROSS_DEVICE_1M, Population
+    from repro_torch.core import RoundProgram
+    pop = Population(CROSS_DEVICE_1M, seed=0)
+    rows, launches = {}, 0
+    for K_ in COHORT_KS:
+        res = {}
+        for engine in ("local", "kernel"):
+            for overlap in (1, COHORT_OVERLAP):
+                exp = _cohort_exp(pop, K_, engine, overlap)
+                before = RoundProgram.captures
+                reset_all_counts()
+                cold, cold_s = _run_timed(exp)
+                n_launch = read_counts()["sdca_local_solve"]
+                captures = RoundProgram.captures - before
+                want = (1, 0) if engine == "local" else (0, COHORT_BLOCKS)
+                if (captures, n_launch) != want or \
+                        cold.result.captures != want[0]:
+                    raise AssertionError(
+                        f"cohort K={K_} {engine} overlap {overlap}: "
+                        f"{captures} captures, {n_launch} launches in "
+                        f"{COHORT_BLOCKS} blocks (expected {want})")
+                launches += n_launch
+                # warm: the best of two more runs (each pre-samples its
+                # schedule and, on the local engine, captures its program)
+                warm, warm_s = min((_run_timed(exp) for _ in range(2)),
+                                   key=lambda r: r[1])
+                _same_cohort_bits(f"cohort K={K_} {engine} rerun",
+                                  cold.result, warm.result)
+                res[engine, overlap] = cold
+                capture_s = warm.result.capture_s or 0.0
+                row = dict(cold_wall_s=cold_s, warm_wall_s=warm_s,
+                           warm_ms_per_block=1e3 * warm_s / COHORT_BLOCKS,
+                           warm_ms_per_block_after_capture=1e3 * (
+                               warm_s - capture_s) / COHORT_BLOCKS,
+                           blocks_per_s=COHORT_BLOCKS / warm_s,
+                           clients_per_s=K_ * COHORT_BLOCKS / warm_s,
+                           captures=captures, launches=n_launch,
+                           capture_s=cold.result.capture_s,
+                           warm_capture_s=warm.result.capture_s,
+                           final_primal=cold.final("primal"),
+                           unique_clients=cold.final("unique_clients"))
+                rows[f"K{K_}_{engine}_overlap{overlap}"] = row
+                print(f"cohort (a) [cross_device_1m K={K_} {engine} "
+                      f"overlap {overlap}, {COHORT_BLOCKS} blocks]: cold "
+                      f"{cold_s:.3f} s (schedule pre-sampling"
+                      + (f", capture {cold.result.capture_s:.3f} s" if
+                         captures else "") + f"), warm "
+                      f"{row['warm_ms_per_block']:.2f} ms/block"
+                      + (f" ({row['warm_ms_per_block_after_capture']:.2f} "
+                         "after the capture)" if captures else "")
+                      + f", {row['blocks_per_s']:.1f} blocks/s, "
+                      f"{row['clients_per_s']:.0f} clients/s, captures "
+                      f"{captures}, SDCA launches {n_launch}, final primal "
+                      f"{row['final_primal']:.6g}, unique clients "
+                      f"{row['unique_clients']} [{card}]", flush=True)
+            _same_cohort_bits(f"cohort K={K_} {engine} overlap "
+                              f"{COHORT_OVERLAP} vs 1",
+                              res[engine, 1].result,
+                              res[engine, COHORT_OVERLAP].result)
+        rel = _compare_histories(f"cohort K={K_} kernel vs local",
+                                 res["kernel", 1].history,
+                                 res["local", 1].history)
+        rows[f"K{K_}_kernel_vs_local_rel"] = rel
+        print(f"cohort (a) [K={K_}]: overlap {COHORT_OVERLAP} == overlap 1 "
+              f"bit for bit on both engines; kernel vs local history max "
+              f"rel diff {rel:.3e} of |primal| (tolerance "
+              f"{HISTORY_RTOL:g})", flush=True)
+    return rows, launches, pop
+
+
+def cohort_faults(card):
+    """(b) faults_scale: f = 0.25 with degradation inside the 10% envelope
+    of the fault-free final primal; a run crashed at block 6 (checkpoints
+    every 2 blocks) and resumed equals the uninterrupted run bit for bit."""
+    import tempfile
+    from repro_torch.cohort import (BlockFailure, FaultConfig, Population,
+                                    PopulationSpec)
+    pop = Population(PopulationSpec(**FAULT_SPEC), seed=0)
+
+    def exp(**ex):
+        faults = ex.pop("faults", None)
+        e = _cohort_exp(pop, FAULT_COHORT, "local", 1, rounds=FAULT_BLOCKS,
+                        **ex)
+        return dataclasses.replace(e, systems=dataclasses.replace(
+            e.systems, sampler="uniform", faults=faults))
+
+    clean = exp()
+    _run_timed(clean)
+    ref, ref_s = _run_timed(clean)
+    faults = FaultConfig(solve_fail_prob=FAULT_RATE,
+                         pack_fail_prob=FAULT_RATE / 2,
+                         fold_delay_prob=FAULT_RATE, fold_delay_s=2.0)
+    faulty, faulty_s = _run_timed(exp(faults=faults,
+                                      max_retries=FAULT_RETRIES,
+                                      degrade=True))
+    gap = (abs(faulty.final("primal") - ref.final("primal"))
+           / max(abs(ref.final("primal")), 1.0))
+    if gap > FAULT_ENVELOPE:
+        raise AssertionError(f"faults: final primal drifted {gap:.3f} "
+                             f"(> {FAULT_ENVELOPE}) from fault-free")
+    with tempfile.TemporaryDirectory() as ckdir:
+        kw = dict(checkpoint_every=CHECKPOINT_EVERY, checkpoint_dir=ckdir)
+        t0 = time.perf_counter()
+        try:
+            exp(faults=FaultConfig(solve_fail_blocks=(CRASH_BLOCK,)),
+                **kw).run(0)
+            raise AssertionError("the hard fault did not crash the run")
+        except BlockFailure:
+            pass
+        crash_s = time.perf_counter() - t0
+        resumed, resume_s = _run_timed(exp(resume=True, **kw))
+    _same_cohort_bits("faults: resumed vs uninterrupted", ref.result,
+                      resumed.result)
+    row = dict(clean_s=ref_s, faulty_s=faulty_s, convergence_gap=gap,
+               retries=faulty.provenance["retries"],
+               degraded_blocks=faulty.provenance["degraded_blocks"],
+               crash_s=crash_s, resume_s=resume_s,
+               resumed_from=resumed.result.resumed_from)
+    print(f"cohort (b) faults [m={FAULT_SPEC['m']} K={FAULT_COHORT} "
+          f"{FAULT_BLOCKS} blocks]: f={FAULT_RATE} with degradation: "
+          f"final primal {faulty.final('primal'):.6g} vs fault-free "
+          f"{ref.final('primal'):.6g} (gap {gap:.4f} <= {FAULT_ENVELOPE}), "
+          f"{row['retries']} retries, {row['degraded_blocks']} degraded "
+          f"blocks, {faulty_s:.3f} s (clean {ref_s:.3f} s); crash at block "
+          f"{CRASH_BLOCK} + resume from block {row['resumed_from']} == "
+          f"uninterrupted bit for bit ({crash_s:.3f} + {resume_s:.3f} s) "
+          f"[{card}]", flush=True)
+    return row
+
+
+def cohort_reference():
+    """(c) The small reference population on the card against the same run
+    on the CPU (the parity contract), telemetry on; the Chrome trace
+    validated."""
+    import tempfile
+    from repro_torch.api import Eval, Exec, Experiment, Method, Problem, \
+        Systems
+    from repro_torch.cohort import Population, PopulationSpec
+    from repro_torch.core import BudgetConfig, Probabilistic
+    from repro_torch.obs import validate_chrome_trace
+    reps = {}
+    with tempfile.TemporaryDirectory() as tdir:
+        for dev in ("cuda", "cpu"):
+            reps[dev] = Experiment(
+                problem=Problem(population=Population(
+                    PopulationSpec(**REF_SPEC), seed=0)),
+                method=Method(regularizers=(Probabilistic(
+                    lam=1e-2, sigma2=10.0),), rounds=6,
+                    omega_update_every=2, budget=BudgetConfig(passes=1.0)),
+                systems=Systems(dropout=0.2),
+                exec=Exec(cohort=12, clusters=3, overlap=2, device=dev,
+                          trace_dir=f"{tdir}/{dev}"),
+                eval=Eval(holdout_clients=20)).run(1)
+        with open(reps["cuda"].provenance["trace_path"]) as fh:
+            errors = validate_chrome_trace(json.load(fh))
+    if errors:
+        raise AssertionError(f"cohort trace: {errors[:3]}")
+    card, cpu = reps["cuda"], reps["cpu"]
+    if card.history["unique_clients"] != cpu.history["unique_clients"] or \
+            card.history["time"] != cpu.history["time"]:
+        raise AssertionError("cohort reference: coverage or clock differs")
+    err = max(_close(f"cohort reference {k}", card.history[k],
+                     cpu.history[k], OBJ_TOL)
+              for k in ("dual", "primal", "gap"))
+    werr = _close("cohort reference centroids", card.result.centroids,
+                  cpu.result.centroids, W_TOL)
+    tel = card.provenance["telemetry"]
+    print(f"cohort (c) reference [m={REF_SPEC['m']} K=12, 6 blocks, overlap "
+          f"2, telemetry on]: card vs cpu history max |diff| {err:.3e}, "
+          f"centroids {werr:.3e}; trace valid, {tel['blocks_folded']} folds,"
+          f" held-out error card {card.evaluation.summary['mean_error']:.4f}"
+          f" cpu {cpu.evaluation.summary['mean_error']:.4f}", flush=True)
+    return dict(history_err=err, centroid_err=werr)
+
+
+def phase_cohort_path():
+    """The cohort path, (a)-(c); the SDCA counter set to 0 just before each
+    kernel-engine run and read just after it.  Also times the SDCA kernel at
+    the cohort's K 256 shape beside its bound.  (d), the profile, is
+    ``phase_cohort_profile``, run with the other profiles at the end."""
+    from repro_torch.kernels import sdca as K
+    t0 = time.perf_counter()
+    card = card_line()
+    rows, launches, _ = cohort_scale(card)
+    faults = cohort_faults(card)
+    ref = cohort_reference()
+    case = cohort_kernel_case(256)
+    kernel = lambda: K.sdca_local_solve(**case)   # noqa: E731
+    plain = lambda: K.sdca_ref(**_plain_args(case))   # noqa: E731
+    for _ in range(3):
+        kernel()
+    ms = _events_ms(kernel, 50)
+    device_ms = _device_ms_per_call(lambda c: K.sdca_local_solve(**c),
+                                    [case], 20, ("sdca_kernel",))
+    plain()
+    plain_ms = _events_ms(plain, 3)
+    b = bound(case)
+    timing = dict(shape="K=256 n_pad=64 d=32", mode=b["mode"], ms=ms,
+                  device_ms=device_ms, plain_ms=plain_ms,
+                  bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                  chain_steps=b["chain_steps"])
+    wall = time.perf_counter() - t0
+    print(f"cohort timing [SDCA at K=256 n_pad=64 d=32 {b['mode']}, 10% of "
+          f"slots at budget 0]: kernel {ms:.4f} ms/call (device "
+          f"{device_ms:.4f}), plain {plain_ms:.3f} ms/call, bound "
+          f"{b['bound_ms']:.5f} ms ({b['bound_by']}); cohort path "
+          f"{wall:.1f} s [{card}]", flush=True)
+    return dict(scale=rows, faults=faults, reference=ref, launches=launches,
+                kernel=timing, wall_s=wall)
+
+
+def _span_ms(tel):
+    """{span name: (count, mean wall ms)} of a telemetry's spans."""
+    durs = {}
+    for buf in tel.tracer.spans().values():
+        for sp in buf:
+            if sp.dur_s is not None:
+                durs.setdefault(sp.name, []).append(1e3 * sp.dur_s)
+    return {k: (len(v), sum(v) / len(v)) for k, v in sorted(durs.items())}
+
+
+def phase_cohort_profile():
+    """(d) torch.profiler over two warm blocks (6 and 7 of 8) of the
+    cohort_scale run at K 256 on each engine, stepped through the block
+    loop's stages: device kernels and device time a block over the traced
+    wall; then the run's own spans (telemetry on, host clock): the mean wall
+    of pack, solve, fold and the driver's phases."""
+    from torch.profiler import ProfilerActivity
+    from repro_torch import obs
+    from repro_torch.api import as_cohort_config
+    from repro_torch.cohort import CROSS_DEVICE_1M, Population
+    from repro_torch.cohort.driver import _BlockLoop, _run_cohort
+    pop = Population(CROSS_DEVICE_1M, seed=0)
+    out = {}
+    for engine in ("local", "kernel"):
+        exp = _cohort_exp(pop, 256, engine, 1)
+        cfg = as_cohort_config(exp, seed=0)
+        loop = _BlockLoop(pop, exp.method.regularizers[0], cfg)
+
+        def blocks(lo, hi):
+            for b in range(lo, hi):
+                ids, dropped, alpha0, omega0 = loop.launch_args(b)
+                packed = loop.pack_block(b)
+                loop.fold(b, ids, packed.sizes, loop.solve_block(
+                    b, packed, ids, dropped, alpha0, omega0))
+
+        blocks(0, COHORT_BLOCKS - 2)
+        wall, dev_ms, kernels = _traced(
+            lambda: blocks(COHORT_BLOCKS - 2, COHORT_BLOCKS),
+            [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        tel = obs.telemetry()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _run_cohort(pop, exp.method.regularizers[0],
+                    dataclasses.replace(cfg, telemetry=True), telemetry=tel)
+        torch.cuda.synchronize()
+        spans = _span_ms(tel)
+        row = dict(traced_ms_per_block=1e3 * wall / 2,
+                   device_ms_per_block=dev_ms / 2, kernels_per_block=kernels
+                   / 2, busy_traced=dev_ms / (1e3 * wall),
+                   telemetry_wall_s=time.perf_counter() - t0, spans=spans)
+        out[engine] = row
+        print(f"profile [cohort K=256 {engine}, blocks 6-7]: "
+              f"{row['kernels_per_block']:.0f} device kernels/block, device "
+              f"busy {row['device_ms_per_block']:.3f} ms/block, traced wall "
+              f"{row['traced_ms_per_block']:.2f} ms/block "
+              f"({100 * row['busy_traced']:.1f}% busy); spans of a "
+              f"{COHORT_BLOCKS}-block run (telemetry on, "
+              f"{row['telemetry_wall_s']:.3f} s): " + ", ".join(
+                  f"{k} x{n} {ms:.2f} ms" for k, (n, ms) in spans.items())
+              + f" [{card_line()}]", flush=True)
+    return out
 
 
 def _events_ms(fn, reps):
@@ -1467,7 +1857,7 @@ def phase_eval_profile(drivers, rounds=2):
     run = _start(train, reg, MochaConfig(rounds=rounds + 1,
                                          omega_update_every=5,
                                          driver="scan"))
-    keys, budgets, prog = _scanned_program(run)
+    keys, budgets, prog, _ = _scanned_program(run)
     prog.run()                      # the first round, before the window
     wall, dev_ms, kernels = _traced(
         lambda: _replay_rounds(prog, keys[1:], budgets[1:],
@@ -1517,6 +1907,7 @@ def main() -> int:
     eval_path = phase_eval_path()
     eval_launches = (eval_path["grids"]["kernel_grid_launches"]
                      + eval_path["grids"]["global_launches"])
+    cohort = phase_cohort_path()
     phase_small_reference()
     lm = phase_lm_main_path()
     phase_lm_small_reference()
@@ -1525,15 +1916,19 @@ def main() -> int:
     attn = phase_attention_timing(attn_errs)
     serve = phase_serve_timing(lm)
     phase_lm_profile(lm)
+    cohort["profile"] = phase_cohort_profile()
     eval_path["replay_profile"] = phase_eval_profile(eval_path["drivers"])
     head = shapes["vehicle_sensor"]
+    shapes["cohort_k256"] = dict(cohort["kernel"],
+                                 max_abs_err=errs["cohort"])
     kernels = [dict(
         name="sdca_local_solve", route="cuda",
         source="src/repro_torch/kernels/sdca/csrc/sdca.cu",
         replaces="src/repro/kernels/sdca/sdca.py:45",
-        launches=launches + eval_launches,
+        launches=launches + eval_launches + cohort["launches"],
         launches_by_path={"mocha_main": launches,
-                          "eval_kernel_grids": eval_launches},
+                          "eval_kernel_grids": eval_launches,
+                          "cohort": cohort["launches"]},
         max_abs_err=max(errs.values()),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=None,
@@ -1559,6 +1954,7 @@ def main() -> int:
             shapes={"float32": f32, "bfloat16": bf16}))
     print(json.dumps({"serve_ms": serve}))
     print(json.dumps({"eval_path": eval_path}))
+    print(json.dumps({"cohort_path": cohort}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

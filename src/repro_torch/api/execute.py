@@ -2,22 +2,26 @@
 
 ``run_experiment`` is the one function behind ``Experiment.run``.  The
 single path is the core driver (``repro_torch.core.mocha``), the batched
-grid is the sweep (``repro_torch.core.sweep``), and the grid fallback runs
-the core driver cell by cell.  What lives here is the glue: seeds,
-held-out evaluation and the provenance block.
+grid is the sweep (``repro_torch.core.sweep``), the grid fallback runs the
+core driver cell by cell, and the cross-device path is the cohort block
+loop (``repro_torch.cohort.driver``).  What lives here is the glue: seeds,
+held-out evaluation, telemetry and the provenance block.
 """
 from __future__ import annotations
 
 import logging
+import os
 from typing import Any, Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.report import Report
 from repro_torch.api.router import RoutePlan, route
-from repro_torch.api.specs import (Experiment, as_mocha_config,
-                                   config_fingerprint)
+from repro_torch.api.specs import (Experiment, as_cohort_config,
+                                   as_mocha_config, config_fingerprint)
+from repro_torch.cohort.driver import _run_cohort
 from repro_torch.core import evaluate as eval_mod
 from repro_torch.core.dual import FederatedData
 from repro_torch.core.losses import get_loss
@@ -31,8 +35,27 @@ _LOG = logging.getLogger("repro_torch.api")
 Seed = Union[int, Sequence[int]]
 
 
+def _device_fields(device) -> Dict[str, Any]:
+    dev = resolve_device(device)
+    return {"backend": dev.type, "device": str(dev),
+            "device_name": (torch.cuda.get_device_name(dev)
+                            if dev.type == "cuda" else "cpu")}
+
+
+def base_provenance(device=None) -> Dict[str, Any]:
+    """The provenance block of work run outside the router (micro-
+    benchmarks, raw solver calls): the resolved crossover and the device
+    (the card unless ``device`` says otherwise), the router's fields
+    empty."""
+    return {"path": None, "driver": None, "engine": None,
+            "fallback_reason": None, "gram_max_d": int(active_gram_max_d()),
+            "gram_mode": None, "config_hash": None,
+            **_device_fields(device),
+            "retries": None, "degraded_blocks": None,
+            "telemetry": None, "trace_path": None}
+
+
 def _provenance(exp: Experiment, plan: RoutePlan) -> Dict[str, Any]:
-    dev = resolve_device(exp.exec.device)
     resolved = (exp.exec.gram_max_d if exp.exec.gram_max_d is not None
                 else active_gram_max_d())
     return {
@@ -43,12 +66,11 @@ def _provenance(exp: Experiment, plan: RoutePlan) -> Dict[str, Any]:
         "gram_max_d": int(resolved),
         "gram_mode": "gram" if exp.problem.d <= int(resolved) else "carry",
         "config_hash": config_fingerprint(exp),
-        "backend": dev.type,
-        "device": str(dev),
-        "device_name": (torch.cuda.get_device_name(dev)
-                         if dev.type == "cuda" else "cpu"),
+        **_device_fields(exp.exec.device),
+        # fault accounting: only the cohort path retries and degrades
         "retries": None,
         "degraded_blocks": None,
+        # the flat metrics summary and trace path, when telemetry is on
         "telemetry": None,
         "trace_path": None,
     }
@@ -71,27 +93,61 @@ def _shuffle_seeds(seed: Seed, n_shuffles: int) -> Tuple[int, ...]:
     return seeds
 
 
+def _seed_tag(seed: Seed) -> str:
+    if isinstance(seed, (int, np.integer)):
+        return str(int(seed))
+    return "-".join(str(int(s)) for s in seed)
+
+
+def _finalize_telemetry(exp: Experiment, tel: obs.Telemetry, seed: Seed,
+                        report: Report) -> None:
+    """Merge the flat metrics summary (and the trace's path) into the
+    provenance block.  The trace's file name is a pure function of (config
+    hash, seed), so a rerun overwrites it."""
+    if not tel.enabled:
+        return
+    prov = report.provenance
+    prov["telemetry"] = obs.metrics_summary(tel)
+    if exp.exec.trace_dir is not None:
+        stem = (f"trace_{prov.get('config_hash') or 'run'}"
+                f"_s{_seed_tag(seed)}.json")
+        prov["trace_path"] = obs.write_trace(
+            os.path.join(exp.exec.trace_dir, stem), tel)
+
+
 def run_experiment(exp: Experiment, seed: Seed = 0) -> Report:
     """The function behind ``Experiment.run``."""
+    tel = obs.telemetry(exp.exec.telemetry or exp.exec.trace_dir is not None)
     plan = route(exp)
+    # the router's decision, as a trace event
+    tel.event("route", path=plan.path, driver=plan.driver,
+              engine=plan.engine, fallback_reason=plan.reason)
     if plan.reason is not None:
         _LOG.info("falling back to the sequential %r path: %s",
                   plan.path, plan.reason)
-    if plan.path == "sweep":
-        return _run_sweep_path(exp, seed, plan)
-    if plan.path == "grid":
-        return _run_grid_path(exp, seed, plan)
-    return _run_single_path(exp, seed, plan)
+    with tel.span("experiment", path=plan.path):
+        if plan.path == "cohort":
+            report = _run_cohort_path(exp, seed, plan, tel)
+        elif plan.path == "sweep":
+            report = _run_sweep_path(exp, seed, plan)
+        elif plan.path == "grid":
+            report = _run_grid_path(exp, seed, plan, tel)
+        else:
+            report = _run_single_path(exp, seed, plan, tel)
+    _finalize_telemetry(exp, tel, seed, report)
+    return report
 
 
-def _run_single_path(exp: Experiment, seed: Seed, plan: RoutePlan) -> Report:
+def _run_single_path(exp: Experiment, seed: Seed, plan: RoutePlan,
+                     tel: obs.Telemetry = obs.NULL_TELEMETRY) -> Report:
     cfg = as_mocha_config(exp, seed=_scalar_seed(seed))
     res = _run_mocha(exp.problem.train, exp.method.regularizers[0], cfg,
                      omega0=exp.method.omega0,
                      budget_fn=exp.method.budget_fn,
                      engine=exp.exec.resolve_engine(),
                      trace=exp.systems.trace,
-                     state0=exp.exec.state0)
+                     state0=exp.exec.state0,
+                     telemetry=tel)
     evaluation = None
     if exp.eval.holdout is not None:
         holdout = exp.eval.holdout
@@ -121,7 +177,8 @@ def _run_sweep_path(exp: Experiment, seed: Seed, plan: RoutePlan) -> Report:
                   evaluation=_grid_eval(exp, res.W))
 
 
-def _run_grid_path(exp: Experiment, seed: Seed, plan: RoutePlan) -> Report:
+def _run_grid_path(exp: Experiment, seed: Seed, plan: RoutePlan,
+                   tel: obs.Telemetry = obs.NULL_TELEMETRY) -> Report:
     """The sequential fallback: every (regularizer, shuffle) cell is one
     core-driver run, on any engine, clock policy or regularizer mix.  Under
     ``semi_sync`` each cell gets a fresh ``SystemsTrace`` from
@@ -144,9 +201,11 @@ def _run_grid_path(exp: Experiment, seed: Seed, plan: RoutePlan) -> Report:
         cfg = as_mocha_config(exp, seed=seeds[si],
                               record_every=max(1, exp.method.rounds))
         for ri, reg in enumerate(regs):
-            res = _run_mocha(data_s, reg, cfg, omega0=exp.method.omega0,
-                             budget_fn=exp.method.budget_fn, engine=engine,
-                             state0=exp.exec.state0)
+            with tel.span("grid.cell", shuffle=si, reg=ri):
+                res = _run_mocha(data_s, reg, cfg, omega0=exp.method.omega0,
+                                 budget_fn=exp.method.budget_fn,
+                                 engine=engine, state0=exp.exec.state0,
+                                 telemetry=tel)
             W[ri, si] = res.W
             omega[ri, si] = res.omega
             dual[ri, si] = res.final("dual")
@@ -156,3 +215,29 @@ def _run_grid_path(exp: Experiment, seed: Seed, plan: RoutePlan) -> Report:
                          regs=tuple(regs), seeds=seeds)
     return Report(result=result, provenance=_provenance(exp, plan),
                   evaluation=_grid_eval(exp, W))
+
+
+def _cohort_report(exp: Experiment, plan: RoutePlan, s: int, res) -> Report:
+    """Report of a finished cohort run: held-out clients (when
+    ``Eval.holdout_clients`` is set) and the provenance with the run's
+    fault accounting."""
+    evaluation = None
+    if exp.eval.holdout_clients > 0:
+        evaluation = eval_mod.evaluate_cohort(
+            exp.problem.population, res.relationship,
+            get_loss(exp.method.loss), exp.eval.holdout_clients, seed=s,
+            participation=res.participation, metrics=exp.eval.metrics)
+    prov = _provenance(exp, plan)
+    if res.fault_stats is not None:
+        prov["retries"] = int(res.fault_stats.retries)
+        prov["degraded_blocks"] = int(res.fault_stats.degraded_blocks)
+    return Report(result=res, provenance=prov, evaluation=evaluation)
+
+
+def _run_cohort_path(exp: Experiment, seed: Seed, plan: RoutePlan,
+                     tel: obs.Telemetry = obs.NULL_TELEMETRY) -> Report:
+    s = _scalar_seed(seed)
+    cfg = as_cohort_config(exp, seed=s)
+    res = _run_cohort(exp.problem.population, exp.method.regularizers[0], cfg,
+                      telemetry=tel)
+    return _cohort_report(exp, plan, s, res)

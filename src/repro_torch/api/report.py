@@ -16,10 +16,14 @@ PROVENANCE_KEYS = ("path", "driver", "engine", "fallback_reason",
 @dataclasses.dataclass
 class Report:
     """What ``Experiment.run`` hands back: ``result`` is the driver's
-    ``RunResult`` (single path) or a ``SweepResult`` (sweep and grid
-    paths); ``provenance`` records how the run executed (the router's path,
-    inner driver and fallback reason among it); ``evaluation`` is the
-    held-out ``EvalReport`` when ``Eval.holdout`` is set."""
+    ``RunResult`` (single path), a ``SweepResult`` (sweep and grid paths)
+    or a ``CohortRunResult`` (cohort path: the factored state, per-block
+    history, schedule, participation and fault accounting);
+    ``provenance`` records how the run executed (the router's path, inner
+    driver and fallback reason among it; the cohort path's ``retries`` and
+    ``degraded_blocks``; the telemetry summary and trace path);
+    ``evaluation`` is the held-out ``EvalReport`` when ``Eval.holdout`` or
+    ``Eval.holdout_clients`` is set."""
 
     result: Any
     provenance: Dict[str, Any]

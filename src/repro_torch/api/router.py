@@ -1,6 +1,6 @@
 """Router: which execution path serves an experiment.
 
-The JAX package's paths, of which the port has three:
+The JAX package's paths, all four in the port:
 
   * ``single`` -- one (problem, regularizer) cell through the core driver
                   (pre-sampled when the engine supports it, loop otherwise);
@@ -9,42 +9,31 @@ The JAX package's paths, of which the port has three:
                   driver is named ``vmap`` as in the JAX package;
   * ``grid``   -- the same grid run cell by cell through the core driver
                   (the fallback; ``reason`` says why);
-  * ``cohort`` -- the cross-device path: not in the port yet.
+  * ``cohort`` -- the cross-device block loop over a sampled population.
 
 The routing table is the JAX package's (``tests/test_torch_sweep.py``
-mirrors its golden table).  An experiment that needs a path the port does
-not have, or sets a field that only such a path reads, raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+mirrors its golden table), and so are its errors for fields that only the
+cohort loop owns.  An experiment that sets a field only the sharded
+engine reads raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-from repro_torch.api.specs import Eval, Exec, Experiment, Systems
+from repro_torch.api.specs import Exec, Experiment
 
-#: every route of the JAX package; the port has the first three
+#: every route the router can choose
 PATHS = ("single", "sweep", "grid", "cohort")
 
 #: inner drivers a path can run on
 INNER_DRIVERS = ("scan", "loop", "vmap")
 
-_COHORTS = "ROADMAP.md Queue 1 item 11 (checkpoint and cohort)"
-_OBS = "ROADMAP.md Queue 1 item 12 (obs and serve)"
 _SHARDED = "ROADMAP.md Queue 1 item 13 (sharded runtime)"
 
 #: (spec, field) -> the ROADMAP item whose path reads it
 _LATER_FIELDS = {
-    (Eval, "holdout_clients"): _COHORTS,
-    (Systems, "sampler"): _COHORTS,
-    (Systems, "dropout"): _COHORTS,
-    (Systems, "faults"): _COHORTS,
-    **{(Exec, f): _COHORTS for f in (
-        "cohort", "inner_rounds", "clusters", "eta", "cache_clients", "n_pad",
-        "overlap", "staleness", "max_retries", "degrade", "checkpoint_every",
-        "checkpoint_dir", "resume")},
-    (Exec, "telemetry"): _OBS,
-    (Exec, "trace_dir"): _OBS,
     (Exec, "mesh"): _SHARDED,
     (Exec, "comm_dtype"): _SHARDED,
 }
@@ -54,7 +43,7 @@ _LATER_FIELDS = {
 class RoutePlan:
     """The router's decision: where the experiment executes and why."""
 
-    path: str                      # single | sweep | grid
+    path: str                      # single | sweep | grid | cohort
     driver: str                    # scan | loop | vmap (inner execution)
     engine: str                    # resolved engine name
     reason: Optional[str] = None   # why a batched path was not taken
@@ -82,13 +71,11 @@ def batch_incompatibility(exp: Experiment, engine) -> Optional[str]:
 
 def route(exp: Experiment) -> RoutePlan:
     """Inspect the experiment and choose its execution path."""
-    specs = {Eval: exp.eval, Systems: exp.systems, Exec: exp.exec}
+    specs = {Exec: exp.exec}
     for (cls, name), item in _LATER_FIELDS.items():
         default = cls.__dataclass_fields__[name].default
         if getattr(specs[cls], name) != default:
             raise _not_yet(f"{cls.__name__}.{name}", item)
-    if exp.problem.kind == "population":
-        raise _not_yet("a population problem (cohort path)", _COHORTS)
     engine = exp.exec.resolve_engine()
     if exp.exec.driver == "scan" and not engine.supports_scan:
         raise ValueError(
@@ -96,7 +83,50 @@ def route(exp: Experiment) -> RoutePlan:
             "use driver='auto' or 'loop'")
     inner = ("scan" if exp.exec.driver != "loop" and engine.supports_scan
              else "loop")
-    if exp.problem.kind == "shuffles" or len(exp.method.regularizers) > 1:
+
+    kind = exp.problem.kind
+    if kind == "population":
+        if len(exp.method.regularizers) > 1:
+            raise ValueError(
+                "regularizer grids over populations are not supported; run "
+                "one Experiment per grid point")
+        # the cohort block loop OWNS these per-run internals (drop-schedule
+        # budget_fn, expanded cohort omega0, cached-state warm starts, the
+        # K-slot trace, a fresh engine per block): user-supplied ones cannot
+        # apply, so dropping them silently would be a correctness trap
+        owned = [("Method.budget_fn", exp.method.budget_fn),
+                 ("Method.omega0", exp.method.omega0),
+                 ("Exec.state0", exp.exec.state0),
+                 ("Exec.mesh", exp.exec.mesh),
+                 ("Exec.comm_dtype", exp.exec.comm_dtype),
+                 ("Systems.trace", exp.systems.trace)]
+        clash = [name for name, val in owned if val is not None]
+        if clash:
+            raise ValueError(
+                f"{', '.join(clash)} cannot be set on a population "
+                "experiment: the cohort block loop owns the budget mask, "
+                "the expanded cohort Omega, warm starts, the slot trace, "
+                "and the per-block engine")
+        return RoutePlan(path="cohort", driver=inner, engine=engine.name)
+
+    # the resilience knobs (fault injection, retry/degradation, block
+    # checkpointing) are implemented by the cohort block loop only --
+    # silently ignoring them on silo/shuffle paths would be the same
+    # correctness trap as the owned-field clash above
+    resilience = [("Systems.faults", exp.systems.faults is not None),
+                  ("Exec.max_retries", exp.exec.max_retries != 0),
+                  ("Exec.degrade", exp.exec.degrade),
+                  ("Exec.checkpoint_every", exp.exec.checkpoint_every != 0),
+                  ("Exec.checkpoint_dir", exp.exec.checkpoint_dir is not None),
+                  ("Exec.resume", exp.exec.resume)]
+    bad = [name for name, is_set in resilience if is_set]
+    if bad:
+        raise ValueError(
+            f"{', '.join(bad)} only apply to population experiments: "
+            "fault injection, retry/degradation, and checkpoint/resume "
+            "live in the cohort block loop (repro_torch.cohort.resilience)")
+
+    if kind == "shuffles" or len(exp.method.regularizers) > 1:
         if exp.systems.trace is not None:
             raise ValueError(
                 "a pre-built SystemsTrace is single-run state and cannot be "

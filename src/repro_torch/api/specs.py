@@ -3,17 +3,21 @@
 ``Experiment`` is composed of five sub-specs, as in the JAX package's
 ``repro.api``:
 
-  * ``Problem`` -- what is solved (one cross-silo federation);
+  * ``Problem`` -- what is solved: one cross-silo federation, a stack of
+                   shuffles, or a streaming client population;
   * ``Method``  -- loss, regularizer, rounds, budgets, Omega schedule;
-  * ``Systems`` -- the simulated systems environment;
-  * ``Exec``    -- how it executes: engine, driver, crossover, device;
-  * ``Eval``    -- the history cadence and the held-out split.
+  * ``Systems`` -- the simulated systems environment: network, clock,
+                   cohort sampling and dropout, fault injection;
+  * ``Exec``    -- how it executes: engine, driver, crossover, cohort and
+                   cache sizes, resilience, telemetry, device;
+  * ``Eval``    -- the history cadence and the held-out split or clients.
 
 ``Experiment.run(seed)`` routes (``router.route``) and runs it
-(``execute.run_experiment``).  The port runs the single, sweep and grid
-paths; the fields of the other paths (populations, resilience, telemetry)
-exist with the JAX package's defaults, and setting one raises
-``NotImplementedError`` naming its ROADMAP item.
+(``execute.run_experiment``) on the single, sweep, grid or cohort path.
+``as_mocha_config`` / ``as_cohort_config`` build the drivers' configs from
+the specs.  The sharded engine's fields (``Exec.mesh``/``comm_dtype``) and
+serving (``Experiment.serve``) raise ``NotImplementedError`` naming their
+ROADMAP items.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch.cohort.resilience import FaultConfig
 from repro_torch.core.dual import DualState, FederatedData
 from repro_torch.core.mocha import DRIVERS, MochaConfig
 from repro_torch.core.regularizers import MeanRegularized, Regularizer
@@ -127,14 +132,16 @@ class Method:
 class Systems:
     """The simulated systems environment.  ``config`` (the event-driven
     model) overrides ``network``; ``trace`` continues a SystemsTrace's
-    clock.  ``sampler``, ``dropout`` and ``faults`` belong to populations."""
+    clock (single runs).  ``sampler`` / ``dropout`` describe cross-device
+    participation and ``faults`` the deterministic fault schedule of the
+    cohort block loop (population problems only)."""
 
     network: str = "lte"
     config: Optional[SystemsConfig] = None
     trace: Optional[SystemsTrace] = None
     sampler: str = "uniform"
     dropout: float = 0.0
-    faults: Optional[Any] = None
+    faults: Optional[FaultConfig] = None
 
     @property
     def policy(self) -> str:
@@ -147,18 +154,20 @@ class Exec:
 
     ``engine`` is ``"local"`` (plain PyTorch solver, every loss),
     ``"kernel"`` (the Hopper SDCA kernel, hinge) or an engine instance;
-    ``device`` is where the run executes (``"cuda"`` unless the caller asks
-    for ``"cpu"``); ``state0`` warm-starts the dual iterate.  The other
-    fields are those of the JAX package's other paths.
+    ``state0`` warm-starts the dual iterate; ``cohort`` ... ``resume`` are
+    the cohort block loop's (population problems); ``telemetry`` records
+    spans and metrics and ``trace_dir`` writes their Chrome trace (every
+    path).  The fields are the JAX package's, in its order, then
+    ``device``: where the run executes (``"cuda"`` unless the caller asks
+    for ``"cpu"``).  ``mesh``/``comm_dtype`` belong to the sharded engine.
     """
 
     engine: Any = "local"
     driver: str = "auto"               # auto | scan | loop
     gram_max_d: Optional[int] = None
-    device: str = "cuda"
-    state0: Optional[DualState] = None
     mesh: Any = None
     comm_dtype: Any = None
+    state0: Optional[DualState] = None
     cohort: int = 64
     inner_rounds: int = 1
     clusters: int = 3
@@ -174,10 +183,25 @@ class Exec:
     resume: bool = False
     telemetry: bool = False
     trace_dir: Optional[str] = None
+    device: str = "cuda"
 
     def __post_init__(self):
         if self.driver not in DRIVERS:
             raise ValueError(f"driver {self.driver!r} not in {DRIVERS}")
+        if self.overlap < 1:
+            raise ValueError(f"need overlap >= 1, got {self.overlap}")
+        if self.staleness < 0:
+            raise ValueError(f"need staleness >= 0, got {self.staleness}")
+        if self.max_retries < 0:
+            raise ValueError(
+                f"need max_retries >= 0, got {self.max_retries}")
+        if self.checkpoint_every < 0:
+            raise ValueError(
+                f"need checkpoint_every >= 0, got {self.checkpoint_every}")
+        if ((self.checkpoint_every > 0 or self.resume)
+                and self.checkpoint_dir is None):
+            raise ValueError(
+                "checkpoint_every/resume need Exec.checkpoint_dir")
 
     def resolve_engine(self):
         from repro_torch.core.engine import get_engine
@@ -196,8 +220,9 @@ class Eval:
 
     ``holdout`` is a test ``FederatedData`` matching the problem (stacked,
     or a sequence, for shuffle grids); when set, the Report carries a
-    per-client table of ``metrics``.  ``holdout_clients`` belongs to the
-    cohort path.
+    per-client table of ``metrics``.  ``holdout_clients`` is the
+    population analogue: how many never- (or least-) trained clients to
+    materialize and score, by learned cluster.
     """
 
     record_every: int = 1
@@ -234,7 +259,7 @@ class Experiment:
     def serve(self, seed: int = 0, serve=None):
         raise NotImplementedError(
             "Experiment.serve is not in the port yet (ROADMAP.md Queue 1 "
-            "item 12: obs/ and serve/)")
+            "item 12, its serving half: serve/store, predict, refresh)")
 
     def route(self) -> "RoutePlan":
         from repro_torch.api.router import route
@@ -261,6 +286,41 @@ def as_mocha_config(exp: Experiment, seed: int = 0, *,
         driver=exp.exec.driver,
         gram_max_d=exp.exec.gram_max_d,
         device=exp.exec.device,
+    )
+
+
+def as_cohort_config(exp: Experiment, seed: int = 0):
+    """``CohortConfig`` as a frozen view over the sub-specs; its ``inner``
+    per-block solver settings are an ``as_mocha_config`` view (the cohort
+    loop owns the inner systems clock, so ``inner.systems`` is None)."""
+    from repro_torch.cohort.driver import CohortConfig
+    inner = dataclasses.replace(as_mocha_config(exp, seed=seed), systems=None)
+    return CohortConfig(
+        rounds=exp.method.rounds,
+        cohort=exp.exec.cohort,
+        inner_rounds=exp.exec.inner_rounds,
+        sampler=exp.systems.sampler,
+        dropout=exp.systems.dropout,
+        clusters=exp.exec.clusters,
+        eta=exp.exec.eta,
+        omega_update_every=exp.method.omega_update_every,
+        cache_clients=exp.exec.cache_clients,
+        network=exp.systems.network,
+        systems=exp.systems.config,
+        seed=int(seed),
+        record_every=exp.eval.record_every,
+        n_pad=exp.exec.n_pad,
+        overlap=exp.exec.overlap,
+        staleness=exp.exec.staleness,
+        max_retries=exp.exec.max_retries,
+        degrade=exp.exec.degrade,
+        faults=exp.systems.faults,
+        checkpoint_every=exp.exec.checkpoint_every,
+        checkpoint_dir=exp.exec.checkpoint_dir,
+        resume=exp.exec.resume,
+        telemetry=bool(exp.exec.telemetry or exp.exec.trace_dir is not None),
+        trace_dir=exp.exec.trace_dir,
+        inner=inner,
     )
 
 

@@ -5,8 +5,9 @@ from repro_torch.core.dual import (DualState, FederatedData, compute_v,
                                    primal_weights, r_star, with_xnorm2)
 from repro_torch.core.engine import (ENGINES, KernelEngine, LocalEngine,
                                      RoundEngine, get_engine)
-from repro_torch.core.evaluate import (METRICS, EvalReport, evaluate_grid,
-                                       evaluate_run)
+from repro_torch.core.evaluate import (METRICS, EvalReport,
+                                       evaluate_cohort, evaluate_grid,
+                                       evaluate_run, holdout_client_ids)
 from repro_torch.core.losses import (HINGE, LOGISTIC, LOSSES, SMOOTH_HINGE,
                                      SQUARED, Loss, get_loss)
 from repro_torch.core.minibatch import (MiniBatchConfig, MiniBatchResult,

@@ -4,12 +4,13 @@
                    (``evaluate_run``);
   * sweep grids -- the same table for every (regularizer, shuffle) cell and
                    the (R, S) mean-error grid the Table-1/4 protocol selects
-                   over (``evaluate_grid``).
+                   over (``evaluate_grid``);
+  * populations -- held-out clients (preferring never-trained ones) scored
+                   against their served weights and aggregated by learned
+                   cluster (``evaluate_cohort``).
 
-Both return an ``EvalReport``, the ``evaluation`` block of
-``repro_torch.api.Report``.  The JAX package's cohort evaluation
-(``holdout_client_ids``, ``evaluate_cohort``) belongs to the cohort path,
-which the port does not have yet (ROADMAP.md Queue 1 item 11).
+Each returns an ``EvalReport``, the ``evaluation`` block of
+``repro_torch.api.Report``.
 """
 from __future__ import annotations
 
@@ -35,8 +36,8 @@ class EvalReport:
     ``per_client`` maps a column name to an array over clients: ``(m,)``
     for a single run, ``(R, S, m)`` for a grid.  ``grid`` (grids only) is
     the (R, S) mean held-out error used for model selection.  ``summary``
-    holds flat scalars.  ``per_cluster`` is the cohort path's (always None
-    here).
+    holds flat scalars.  ``per_cluster`` (cohort runs only) aggregates the
+    held-out clients by learned cluster.
     """
 
     per_client: Dict[str, np.ndarray]
@@ -123,3 +124,84 @@ def evaluate_grid(W, holdout: FederatedData, loss: Loss,
         "best_stderr": float(best.std() / np.sqrt(max(len(best), 1))),
     }
     return EvalReport(per_client=table, grid=grid, summary=summary)
+
+
+#: domain-separation tag for the held-out-client draw (never shares raw
+#: draws with the schedule / population / rates streams)
+_HOLDOUT_STREAM = 0x65766C   # "evl"
+
+
+def holdout_client_ids(m: int, n_clients: int, seed: int,
+                       participation: Optional[np.ndarray] = None
+                       ) -> np.ndarray:
+    """Deterministic held-out client sample for population evaluation.
+
+    Prefers clients the run NEVER trained on (``participation == 0``);
+    falls back to the full population when coverage was total.  Pure in
+    ``(m, n_clients, seed, participation)``: the JAX package's draw, bit
+    for bit.
+    """
+    rng = np.random.default_rng(
+        np.random.SeedSequence([_HOLDOUT_STREAM, int(seed)]))
+    pool = np.arange(m)
+    if participation is not None:
+        unseen = np.flatnonzero(np.asarray(participation) == 0)
+        if unseen.size >= min(n_clients, 1):
+            pool = unseen
+    n = int(min(n_clients, pool.size))
+    return np.sort(rng.choice(pool, size=n, replace=False))
+
+
+def evaluate_cohort(pop, relationship, loss: Loss, n_clients: int,
+                    seed: int = 0,
+                    participation: Optional[np.ndarray] = None,
+                    metrics: Tuple[str, ...] = METRICS) -> EvalReport:
+    """Per-cluster held-out-client evaluation of a cross-device run.
+
+    Materializes ``n_clients`` held-out clients (``holdout_client_ids``),
+    scores each against its served weights (``ClusterOmega.
+    client_weights``: cluster centroid plus cached personal delta, the bare
+    centroid for a cold client) on the host, and aggregates by learned
+    cluster assignment.
+    """
+    metrics = _check_metrics(metrics)
+    ids = holdout_client_ids(pop.m, n_clients, seed, participation)
+    if ids.size == 0:
+        return EvalReport(per_client={"client": ids},
+                          summary={"holdout_clients": 0.0})
+    W = relationship.client_weights(ids)
+    errs = np.empty(ids.size)
+    lvals = np.empty(ids.size)
+    sizes = np.empty(ids.size, np.int64)
+    for i, t in enumerate(ids):
+        blk = pop.client_block(int(t))
+        z = blk.X @ W[i]
+        errs[i] = float(np.mean(np.sign(z) != np.sign(blk.y)))
+        lvals[i] = float(torch.mean(loss.value(torch.from_numpy(z),
+                                               torch.from_numpy(blk.y))))
+        sizes[i] = blk.n
+    clusters = np.asarray(relationship.assign)[ids]
+    table: Dict[str, np.ndarray] = {"client": ids, "cluster": clusters,
+                                    "n_holdout": sizes}
+    if "error" in metrics:
+        table["error"] = errs
+    if "loss" in metrics:
+        table["loss"] = lvals
+    uniq = np.unique(clusters)
+    per_cluster: Dict[str, np.ndarray] = {
+        "cluster": uniq,
+        "n_clients": np.asarray([(clusters == c).sum() for c in uniq]),
+    }
+    if "error" in metrics:
+        per_cluster["mean_error"] = np.asarray(
+            [errs[clusters == c].mean() for c in uniq])
+    if "loss" in metrics:
+        per_cluster["mean_loss"] = np.asarray(
+            [lvals[clusters == c].mean() for c in uniq])
+    summary = {"holdout_clients": float(ids.size)}
+    if "error" in metrics:
+        summary["mean_error"] = float(errs.mean())
+    if "loss" in metrics:
+        summary["mean_loss"] = float(lvals.mean())
+    return EvalReport(per_client=table, per_cluster=per_cluster,
+                      summary=summary)

@@ -29,7 +29,7 @@ and dead chunks add exact zeros.
 from __future__ import annotations
 
 import dataclasses
-import time
+import threading
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -45,8 +45,10 @@ from repro_torch.core.systems_model import SystemsConfig, SystemsTrace
 from repro_torch.core.theta import (BudgetConfig, presample_budgets,
                                     round_budgets, round_key_schedule,
                                     validate_assumption2)
+from repro_torch.obs import NULL_TELEMETRY, Telemetry
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.timing import tick
 
 Tensor = torch.Tensor
 
@@ -55,6 +57,12 @@ Tensor = torch.Tensor
 HISTORY_KEYS = ("round", "dual", "primal", "gap", "time", "round_max_steps")
 
 DRIVERS = ("auto", "scan", "loop")
+
+#: held while a ``RoundProgram`` is captured as a CUDA graph; a thread that
+#: works on the card beside the capturing one (the cohort pack worker) holds
+#: it around that work, so no other thread's allocation or copy falls
+#: inside a capture
+CAPTURE_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,7 +207,10 @@ def _run_mocha(data: FederatedData, reg: Regularizer, cfg: MochaConfig,
                                             Tensor]] = None,
                engine=None,
                trace: Optional[SystemsTrace] = None,
-               state0: Optional[DualState] = None) -> RunResult:
+               state0: Optional[DualState] = None,
+               telemetry: Optional[Telemetry] = None,
+               programs: Optional[Dict[tuple, "RoundProgram"]] = None,
+               ) -> RunResult:
     """Run Algorithm 1 on the configured round engine.
 
     ``budget_fn(key, n_t, round) -> (m,) int budgets`` overrides the
@@ -207,11 +218,34 @@ def _run_mocha(data: FederatedData, reg: Regularizer, cfg: MochaConfig,
     class or instance); ``trace`` continues a SystemsTrace; ``omega0`` and
     ``state0`` (alpha, v with v = X alpha) warm-start the run.  The data
     and the warm starts move to ``cfg.device``.
+
+    ``telemetry`` (a ``repro_torch.obs.Telemetry``) gets the JAX package's
+    spans: ``mocha.run`` around the run, and on the pre-sampled driver
+    ``mocha.presample``, one ``mocha.scan_dispatch`` per Omega segment and
+    ``mocha.host_pull``.  Spans read the host clock only, so results are
+    the same bits with telemetry on, off or absent.
+
+    ``programs`` is a cache of round programs that outlives the run, keyed
+    by what fixes a program's shapes (``_program_key``): a run whose key is
+    in it copies its data, warm start and first round's inputs into that
+    program instead of building (on the card: capturing) a new one.  The
+    cohort block loop passes one cache for all of its blocks, so a run of
+    blocks captures once.  The result's ``state`` is then a copy, since the
+    program's buffers serve the next run.
     """
     run = _start(data, reg, cfg, omega0, engine, trace, state0)
-    if cfg.driver != "loop" and run.eng.supports_scan:
-        return _run_scanned(run, budget_fn)
-    return _run_loop(run, budget_fn)
+    tel = telemetry if telemetry is not None else NULL_TELEMETRY
+    if tel.enabled:
+        # a pure read of the simulated clock; binding the same shared trace
+        # again (the cohort case) changes nothing
+        trace = run.trace
+        tel.set_sim_clock(lambda: trace.elapsed_s)
+    scanned = cfg.driver != "loop" and run.eng.supports_scan
+    with tel.span("mocha.run", rounds=cfg.rounds, engine=run.eng.name,
+                  driver="scan" if scanned else "loop"):
+        if scanned:
+            return _run_scanned(run, budget_fn, tel, programs)
+        return _run_loop(run, budget_fn)
 
 
 def _run_loop(run: _Run, budget_fn) -> RunResult:
@@ -267,14 +301,20 @@ class RoundProgram:
     (a tuple of tensors) and of every named input; ``run(**inputs)`` copies
     new values into those input buffers (``copy_``: a buffer is never
     rebound, so a captured graph reads the new values) and runs the round,
-    which writes the new state into the state buffers.
+    which writes the new state into the state buffers.  ``reset(state)``
+    copies a new state in, so one program serves runs of the same shapes.
 
     On a CUDA device the round is captured once as a ``torch.cuda.CUDAGraph``
     and ``run`` replays it.  A warm-up round runs first on a side stream and
-    its effect on the state is undone; a capture that fails raises.  On the
-    CPU the round runs eagerly.  ``capture_s`` is the host time of warm-up,
-    capture and instantiation (None on the CPU).
+    its effect on the state is undone; a capture that fails raises.  The
+    capture holds ``CAPTURE_LOCK``.  On the CPU the round runs eagerly.
+    ``capture_s`` is the host time of warm-up, capture and instantiation
+    (None on the CPU); ``RoundProgram.captures`` counts the captures made
+    in the process.
     """
+
+    #: CUDA graph captures since the process started (or a test reset it)
+    captures = 0
 
     def __init__(self, step: Callable, state: Sequence[Tensor],
                  inputs: Dict[str, Tensor]):
@@ -284,27 +324,33 @@ class RoundProgram:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.capture_s: Optional[float] = None
         if self.state[0].device.type == "cuda":
-            self._capture(self.state[0].device)
+            with CAPTURE_LOCK:
+                self._capture(self.state[0].device)
 
     def _round(self) -> None:
         for buf, new in zip(self.state, self.step(self.state, self.inputs)):
             buf.copy_(new)
 
     def _capture(self, dev: torch.device) -> None:
-        t0 = time.perf_counter()
+        t0 = tick()
         before = tuple(t.clone() for t in self.state)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self._round()
         torch.cuda.current_stream(dev).wait_stream(side)
-        for buf, old in zip(self.state, before):
-            buf.copy_(old)
+        self.reset(before)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self._round()
         self.graph = graph
-        self.capture_s = time.perf_counter() - t0
+        self.capture_s = tick() - t0
+        RoundProgram.captures += 1
+
+    def reset(self, state: Sequence[Tensor]) -> None:
+        """Copy a new state into the state buffers."""
+        for buf, new in zip(self.state, state):
+            buf.copy_(new)
 
     def set(self, **inputs: Tensor) -> None:
         """Copy new values into the named input buffers."""
@@ -341,55 +387,106 @@ def presample_round_inputs(cfg: MochaConfig, key: Tensor, n_t: Tensor,
     return round_keys, budgets
 
 
+def _data_inputs(data: FederatedData) -> Dict[str, Tensor]:
+    """A federation's tensors as round-program inputs (``xnorm2`` filled)."""
+    return dict(X=data.X, y=data.y, mask=data.mask, xnorm2=data.xnorm2)
+
+
 def _round_program(round_fn: Callable, loss: Loss, max_steps: int,
                    gram: Optional[bool], data: FederatedData,
                    state: DualState, gamma: float, key: Tensor,
                    budgets: Tensor, K: Tensor, q_t: Tensor) -> RoundProgram:
     """A ``RoundProgram`` of ``round_fn`` (an engine's ``scan_round_fn``)
-    on ``data``, from ``state``, its inputs set to the first round's key,
-    budgets, K and q_t."""
+    from ``state``, its inputs set to ``data`` (which needs its ``xnorm2``)
+    and the first round's key, budgets, K and q_t.  The data is an input,
+    so the program serves any federation of the same shapes."""
     def step(st, x):
-        return round_fn(loss, max_steps, gram, data, DualState(*st), x["K"],
+        fed = FederatedData(X=x["X"], y=x["y"], mask=x["mask"],
+                            xnorm2=x["xnorm2"])
+        return round_fn(loss, max_steps, gram, fed, DualState(*st), x["K"],
                         x["q_t"], x["budgets"], gamma, x["key"])
 
     return RoundProgram(step, state, dict(key=key, budgets=budgets, K=K,
-                                          q_t=q_t))
+                                          q_t=q_t, **_data_inputs(data)))
+
+
+def _segments(rounds: int, every: int):
+    """[h0, h_end) spans of rounds between Omega steps (Omega after each
+    ``every``-th round; one segment when ``every`` is 0)."""
+    h0 = 0
+    while h0 < rounds:
+        h_end = min(rounds, (h0 // every + 1) * every) if every else rounds
+        yield h0, h_end
+        h0 = h_end
 
 
 def _replay_rounds(prog: RoundProgram, round_keys: Tensor,
                    budgets: Tensor, every: int,
                    omega_step: Optional[Callable] = None,
-                   after_round: Optional[Callable[[int], None]] = None
-                   ) -> None:
+                   after_round: Optional[Callable[[int], None]] = None,
+                   tel: Telemetry = NULL_TELEMETRY,
+                   built: bool = False) -> None:
     """Run ``prog`` once per row of the pre-sampled inputs.  After every
     ``every``-th round ``omega_step(v)`` ends a segment: it runs eagerly
     between two runs (its host reads are legal there) and returns the new
     K and q_t, which are copied into the program's buffers.  Then
-    ``after_round(h)``."""
-    for h in range(len(round_keys)):
-        prog.run(key=round_keys[h], budgets=budgets[h])
-        if every and (h + 1) % every == 0:
-            K, q_t = omega_step(prog.state[1])
-            prog.set(K=K, q_t=q_t)
-        if after_round is not None:
-            after_round(h)
+    ``after_round(h)``.  Each segment is one ``mocha.scan_dispatch`` span:
+    on the card it times the host's enqueue of the segment's replays, not
+    their execution (that surfaces in ``mocha.host_pull``); ``compile``
+    tags the first segment of a run that built ``prog`` (``built``)."""
+    for h0, h_end in _segments(len(round_keys), every):
+        with tel.span("mocha.scan_dispatch", h0=h0, h_end=h_end,
+                      compile=built and h0 == 0):
+            for h in range(h0, h_end):
+                prog.run(key=round_keys[h], budgets=budgets[h])
+                if every and (h + 1) % every == 0:
+                    K, q_t = omega_step(prog.state[1])
+                    prog.set(K=K, q_t=q_t)
+                if after_round is not None:
+                    after_round(h)
 
 
-def _scanned_program(run: _Run, budget_fn=None):
+def _program_key(run: _Run) -> tuple:
+    """What fixes a round program: the engine's round function, the loss,
+    the federation's shapes and device, ``max_steps``, the residual mode
+    and gamma (the cohort's engine, loss, K, n_pad, d, max_steps, gram,
+    gamma)."""
+    return (run.eng.scan_round_fn(), run.loss.name, tuple(run.data.X.shape),
+            str(run.data.device), run.max_steps, run.gram, run.cfg.gamma)
+
+
+def _scanned_program(run: _Run, budget_fn=None,
+                     programs: Optional[Dict[tuple, RoundProgram]] = None,
+                     tel: Telemetry = NULL_TELEMETRY):
     """The pre-sampled driver's inputs and program: the run's (rounds, 2)
-    round keys and (rounds, m) budgets, and the ``RoundProgram`` of the
-    engine's round function on them."""
+    round keys and (rounds, m) budgets (span ``mocha.presample``), and the
+    ``RoundProgram`` of the engine's round function set to them: a cached
+    one from ``programs`` when its key is there, else a new one (added to
+    ``programs``).  Returns (keys, budgets, program, built)."""
     cfg = run.cfg
-    round_keys, budgets = presample_round_inputs(
-        cfg, prng.PRNGKey(cfg.seed, device=run.data.device), run.data.n_t,
-        run.max_steps, run.trace.presample_caps(cfg.rounds), budget_fn)
+    with tel.span("mocha.presample", rounds=cfg.rounds):
+        round_keys, budgets = presample_round_inputs(
+            cfg, prng.PRNGKey(cfg.seed, device=run.data.device),
+            run.data.n_t, run.max_steps, run.trace.presample_caps(cfg.rounds),
+            budget_fn)
+    key = _program_key(run) if programs is not None else None
+    prog = None if key is None else programs.get(key)
+    if prog is not None:
+        prog.set(key=round_keys[0], budgets=budgets[0], K=run.K,
+                 q_t=run.q_t, **_data_inputs(run.data))
+        prog.reset(run.state)
+        return round_keys, budgets, prog, False
     prog = _round_program(run.eng.scan_round_fn(), run.loss, run.max_steps,
                           run.gram, run.data, run.state, cfg.gamma,
                           round_keys[0], budgets[0], run.K, run.q_t)
-    return round_keys, budgets, prog
+    if key is not None:
+        programs[key] = prog
+    return round_keys, budgets, prog, True
 
 
-def _run_scanned(run: _Run, budget_fn) -> RunResult:
+def _run_scanned(run: _Run, budget_fn, tel: Telemetry = NULL_TELEMETRY,
+                 programs: Optional[Dict[tuple, RoundProgram]] = None
+                 ) -> RunResult:
     """The pre-sampled driver: every round through one ``RoundProgram``.
 
     A recorded round's metrics go into a device buffer; an Omega round's
@@ -397,7 +494,8 @@ def _run_scanned(run: _Run, budget_fn) -> RunResult:
     """
     cfg, trace = run.cfg, run.trace
     rounds = cfg.rounds
-    round_keys, budgets, prog = _scanned_program(run, budget_fn)
+    round_keys, budgets, prog, built = _scanned_program(run, budget_fn,
+                                                        programs, tel)
     record = _record_rounds(rounds, cfg.record_every)
     rows = torch.zeros((rounds, 3), dtype=run.K.dtype, device=run.K.device)
 
@@ -408,12 +506,13 @@ def _run_scanned(run: _Run, budget_fn) -> RunResult:
                                            run.K))
 
     _replay_rounds(prog, round_keys, budgets, cfg.omega_update_every,
-                   run.omega_step, write_row)
+                   run.omega_step, write_row, tel, built)
 
     # the one host transfer: executed budgets and the metric rows
-    executed = budgets.cpu().numpy().astype(np.int64)
-    rows_np = rows.cpu().numpy()
-    trace.replay(executed)
+    with tel.span("mocha.host_pull", rounds=rounds):
+        executed = budgets.cpu().numpy().astype(np.int64)
+        rows_np = rows.cpu().numpy()
+        trace.replay(executed)
     times = trace.times()[-rounds:]
     history: Dict[str, List[float]] = {k: [] for k in HISTORY_KEYS}
     for h in np.flatnonzero(record):
@@ -424,10 +523,13 @@ def _run_scanned(run: _Run, budget_fn) -> RunResult:
         history["time"].append(float(times[h]))
         history["round_max_steps"].append(int(executed[h].max()))
     state = DualState(*prog.state)
+    if programs is not None:   # the program's buffers serve the next run
+        state = DualState(*(t.clone() for t in state))
     W = dual_mod.primal_weights(run.K, state.v)
     return RunResult(W=W.cpu().numpy(), omega=run.omega.cpu().numpy(),
                      state=state, history=history, trace=trace,
-                     round_budgets=executed, capture_s=prog.capture_s)
+                     round_budgets=executed,
+                     capture_s=prog.capture_s if built else None)
 
 
 def run_cocoa(data: FederatedData, reg: Regularizer, cfg: MochaConfig,

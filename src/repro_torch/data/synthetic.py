@@ -57,18 +57,32 @@ SPECS = {s.name: s for s in (
     HUMAN_ACTIVITY, GOOGLE_GLASS, VEHICLE_SENSOR, HA_SKEW, GG_SKEW, VS_SKEW)}
 
 
+def sample_client_size(rng: np.random.Generator, spec: FederationSpec) -> int:
+    """Draw ONE client's local size n_t: the scalar form of ``_sizes``,
+    which the streaming cross-device population draws per client from its
+    own counter-based RNG (``repro_torch.cohort.population``)."""
+    if spec.skewed:
+        lo, hi = np.log(spec.n_min), np.log(spec.n_max)
+        return max(int(np.exp(rng.uniform(lo, hi))), 1)
+    return max(int(rng.integers(spec.n_min, spec.n_max + 1)), 1)
+
+
 def _sizes(rng: np.random.Generator, spec: FederationSpec) -> np.ndarray:
-    # one batched draw: the federation's RNG stream is pinned to it
+    # the (m,) vectorized form of sample_client_size: the same law in one
+    # batched draw (the federation's RNG stream is pinned to it)
     if spec.skewed:
         lo, hi = np.log(spec.n_min), np.log(spec.n_max)
         return np.exp(rng.uniform(lo, hi, spec.m)).astype(int)
     return rng.integers(spec.n_min, spec.n_max + 1, spec.m)
 
 
-def _client_block(rng: np.random.Generator, spec: FederationSpec,
-                  w_true: np.ndarray, mu: np.ndarray, feat_scale: np.ndarray,
-                  n: int) -> Tuple[np.ndarray, np.ndarray]:
-    """One client's (X, y) block from its latent parameters."""
+def sample_client_block(rng: np.random.Generator, spec: FederationSpec,
+                        w_true: np.ndarray, mu: np.ndarray,
+                        feat_scale: np.ndarray,
+                        n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Draw ONE client's (X, y) block from its latent parameters: the law
+    ``make_federation`` drives from its one federation RNG and the
+    streaming population drives from a per-client RNG."""
     xt = mu + (rng.normal(0.0, 1.0, (n, spec.d)) * feat_scale) / np.sqrt(
         spec.d)
     margin = xt @ w_true
@@ -111,8 +125,8 @@ def make_federation(spec: FederationSpec, seed: int = 0,
             n = int(split_sizes[t])
             if n == 0:
                 continue
-            xt, yt = _client_block(rng, spec, W_true[t], mu[t],
-                                   feat_scale[t], n)
+            xt, yt = sample_client_block(rng, spec, W_true[t], mu[t],
+                                         feat_scale[t], n)
             X[t, :n] = xt
             y[t, :n] = yt
             mask[t, :n] = 1.0

@@ -20,9 +20,10 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
 from typing import Callable, Dict, Sequence
+
+from repro_torch.utils.timing import tick
 
 _HERE = Path(__file__).resolve().parent
 #: kernel name -> its CUDA source
@@ -66,7 +67,7 @@ def build(sources: Sequence[Path] = tuple(SOURCES.values())
     Returns ``{source: library}``; records seconds and nvcc's output
     (``-Xptxas -v``: registers and shared memory per kernel) in
     ``LAST_BUILD``.  Raises if any source fails to compile."""
-    t0 = time.perf_counter()
+    t0 = tick()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {src: _target(src) for src in sources}
     jobs = []
@@ -91,7 +92,7 @@ def build(sources: Sequence[Path] = tuple(SOURCES.values())
             os.replace(tmp, lib)   # atomic: concurrent builds agree
     if failed:
         raise RuntimeError("\n".join(failed))
-    LAST_BUILD.update(seconds=time.perf_counter() - t0,
+    LAST_BUILD.update(seconds=tick() - t0,
                       compiled=[str(s) for s, *_ in jobs], log="".join(logs))
     return targets
 

@@ -29,10 +29,11 @@ _ONE_F32_BITS = 0x3F800000
 
 def PRNGKey(seed: int, device: Union[str, torch.device] = "cpu"
             ) -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)`` for a seed in [0, 2**31)."""
+    """``jax.random.PRNGKey(seed)`` for a seed in [0, 2**32): a uint32
+    seed, as the cohort loop's per-block seeds are."""
     seed = int(seed)
-    if not 0 <= seed < 2 ** 31:
-        raise ValueError(f"seed must be in [0, 2**31), got {seed}")
+    if not 0 <= seed < 2 ** 32:
+        raise ValueError(f"seed must be in [0, 2**32), got {seed}")
     return torch.tensor([0, seed], dtype=torch.int64, device=device)
 
 

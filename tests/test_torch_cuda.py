@@ -522,3 +522,139 @@ def test_kernel_grid_launches_once_per_round_per_cell():
                      exec=Exec(engine="kernel")).run(0)
     assert rep.provenance["path"] == "grid"
     assert K.COUNTS["sdca_local_solve"] == 4 * 2 * 3
+
+
+# -- the cohort path on the card ----------------------------------------------
+
+def _cohort_kernel_case(K_, dev, seed=0, drop=0.1):
+    """The SDCA kernel's inputs at the cohort path's shape: K_ clients of
+    CROSS_DEVICE_1K packed to n_pad 64 (d 32, gram mode; rows past each
+    client's n_t have mask 0), a warm-start alpha, one-pass budgets with a
+    share of the slots dropped to budget 0, streams from the port's PRNG."""
+    from repro_torch.cohort import CROSS_DEVICE_1K, Population, pack_cohort
+    from repro_torch.kernels.sdca import draw_coordinates
+    from repro_torch.utils import prng
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(CROSS_DEVICE_1K.m, K_, replace=False)
+    data = pack_cohort(Population(CROSS_DEVICE_1K), ids, device=dev)
+    m, n, d = data.X.shape
+    f = np.float32
+
+    def on(a):
+        return torch.from_numpy(a.astype(f)).to(dev)
+
+    alpha = (data.y * data.mask * on(rng.uniform(0, 1, (m, n)))).contiguous()
+    budgets = torch.round(data.n_t).to(torch.int32)
+    budgets[torch.from_numpy(rng.random(m) < drop).to(dev)] = 0
+    idx = draw_coordinates(prng.split(prng.PRNGKey(seed, device=dev), m),
+                           data.n_t, n, n)
+    return (data.X, data.y, data.mask, alpha, on(0.1 * rng.normal(
+        size=(m, d))), on(rng.uniform(0.5, 2.0, m)), budgets, idx), data
+
+
+@pytest.mark.cuda
+def test_sdca_kernel_at_the_cohort_shape():
+    """K 256 x n_pad 64 x d 32 (gram), dropped slots at budget 0 and padded
+    rows at mask 0, against the plain version within 2e-5 x max(1,
+    max|plain|); a dropped slot's output is exactly 0."""
+    dev = _card()
+    args, data = _cohort_kernel_case(256, dev)
+    assert tuple(data.X.shape) == (256, 64, 32)
+    K.reset_counts()
+    da, u = K.sdca_local_solve(*args, 64, xnorm2=data.xnorm2)
+    torch.cuda.synchronize()
+    assert K.COUNTS["sdca_local_solve"] == 1
+    dr, ur = K.sdca_ref(*args, xnorm2=data.xnorm2)
+    scale = max(1.0, float(dr.abs().max()), float(ur.abs().max()))
+    err = max(float((da - dr).abs().max()), float((u - ur).abs().max()))
+    assert err <= 2e-5 * scale, (err, scale)
+    dropped = args[6] == 0
+    assert dropped.any()
+    assert not torch.any(da[dropped]) and not torch.any(u[dropped])
+    assert not torch.any(da * (1 - data.mask))
+
+
+def _cohort_exp(engine="local", driver="auto", rounds=8, **ex):
+    from repro_torch.api import Exec, Experiment, Method, Problem, Systems
+    from repro_torch.cohort import Population, PopulationSpec
+    from repro_torch.core import (BudgetConfig, Probabilistic,
+                                  SystemsConfig)
+    spec = PopulationSpec("card_pop", m=2000, d=32, n_min=16, n_max=64,
+                          clusters=5)
+    return Experiment(
+        problem=Problem(population=Population(spec, seed=0)),
+        method=Method(regularizers=(Probabilistic(lam=1e-2, sigma2=10.0),),
+                      rounds=rounds, omega_update_every=4,
+                      budget=BudgetConfig(passes=1.0)),
+        systems=Systems(config=SystemsConfig(rate_lo=0.5, rate_hi=2.0),
+                        sampler="weighted", dropout=0.1),
+        exec=Exec(engine=engine, driver=driver, cohort=64, clusters=5, **ex))
+
+
+def _same_cohort_bits(a, b):
+    assert a.history == b.history
+    for k in ("centroids", "omega_k", "assign", "participation"):
+        np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+
+
+@pytest.mark.cuda
+def test_cohort_local_engine_captures_once_and_replays_the_eager_bits():
+    """Eight blocks on the pre-sampled driver capture one round program;
+    every block replayed through it gives the loop driver's (eager) bits."""
+    from repro_torch.core import RoundProgram
+    _card()
+    before = RoundProgram.captures
+    scan = _cohort_exp().run(0)
+    assert RoundProgram.captures - before == 1
+    assert scan.provenance["driver"] == "scan"
+    assert scan.result.captures == 1 and scan.result.capture_s > 0
+    loop = _cohort_exp(driver="loop").run(0)
+    assert loop.result.captures == 0
+    _same_cohort_bits(scan.result, loop.result)
+
+
+@pytest.mark.cuda
+def test_cohort_overlap4_equals_overlap1_on_the_card():
+    """The pipeline (pack and solve on their own threads, the capture
+    beside the pack worker) at staleness 0 gives the sequential bits."""
+    _card()
+    seq = _cohort_exp().run(0)
+    pipe = _cohort_exp(overlap=4).run(0)
+    assert pipe.result.captures == 1
+    _same_cohort_bits(seq.result, pipe.result)
+
+
+@pytest.mark.cuda
+def test_cohort_kernel_engine_launches_once_per_inner_round():
+    """The kernel engine: one SDCA launch per inner round of every block;
+    each block's objectives within 1e-4 of |primal| of the local engine's
+    (chip_smoke's HISTORY_RTOL)."""
+    _card()
+    K.reset_counts()
+    kern = _cohort_exp(engine="kernel", rounds=4, inner_rounds=2).run(0)
+    assert K.COUNTS["sdca_local_solve"] == 4 * 2
+    loc = _cohort_exp(rounds=4, inner_rounds=2).run(0)
+    h, g = kern.history, loc.history
+    scale = np.maximum(np.abs(np.asarray(g["primal"])), 1.0)
+    for k in ("dual", "primal", "gap"):
+        assert np.all(np.abs(np.asarray(h[k]) - np.asarray(g[k]))
+                      <= 1e-4 * scale), k
+    assert h["unique_clients"] == g["unique_clients"]
+
+
+@pytest.mark.cuda
+def test_cohort_resume_equals_the_uninterrupted_run_on_the_card(tmp_path):
+    import dataclasses
+    from repro_torch.cohort import BlockFailure, FaultConfig
+    _card()
+    ref = _cohort_exp(overlap=2).run(0)
+    crash = _cohort_exp(overlap=2, checkpoint_every=2,
+                        checkpoint_dir=str(tmp_path))
+    crash = dataclasses.replace(crash, systems=dataclasses.replace(
+        crash.systems, faults=FaultConfig(solve_fail_blocks=(5,))))
+    with pytest.raises(BlockFailure):
+        crash.run(0)
+    res = _cohort_exp(overlap=2, checkpoint_every=2,
+                      checkpoint_dir=str(tmp_path), resume=True).run(0)
+    assert res.result.resumed_from == 4    # the frontier at the crash
+    _same_cohort_bits(ref.result, res.result)

@@ -25,7 +25,9 @@ assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 for sub in ("configs.smollm_360m", "models.layers", "models.transformer",
             "serve.engine", "launch.serve", "kernels.build",
-            "kernels.flash_attention.ops", "kernels.decode_attention.ops"):
+            "kernels.flash_attention.ops", "kernels.decode_attention.ops",
+            "cohort", "cohort.driver", "cohort.packing", "cohort.resilience",
+            "obs", "obs.summarize", "train.checkpoint", "utils.timing"):
     assert "repro_torch." + sub in names, sub
 print(len(names))
 """
@@ -77,24 +79,44 @@ def test_default_device_is_the_card(entry):
 
 
 def test_unported_paths_name_their_roadmap_item():
+    """What stays unported (the sharded engine, serving) names its ROADMAP
+    item; the cohort path's fields (item 11) and telemetry (item 12's obs
+    half) now route and run, as in the JAX package: on a silo problem the
+    population-only fields are ignored and the resilience fields raise."""
     from repro_torch.api import Eval, Exec, Experiment, Problem, Systems
+    from repro_torch.cohort import FaultConfig, Population, PopulationSpec
     from repro_torch.data.synthetic import tiny_problem
     train = tiny_problem(device="cpu")[0]
-    cases = [dict(exec=Exec(telemetry=True, device="cpu")),
-             dict(exec=Exec(cohort=8, device="cpu")),
-             dict(systems=Systems(dropout=0.1)),
-             dict(systems=Systems(faults=object())),
-             dict(eval=Eval(holdout_clients=8)),
-             dict(exec=Exec(engine="sharded", device="cpu"))]
-    for kw in cases:
-        kw.setdefault("exec", Exec(device="cpu"))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Experiment(problem=Problem(train=train), **kw).run(0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item "
-                                                  "11"):
-        Experiment(problem=Problem(population=object())).route()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                                                  "13"):
+        Experiment(problem=Problem(train=train),
+                   exec=Exec(engine="sharded", device="cpu")).run(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item "
+                                                  "12"):
         Experiment(problem=Problem(train=train)).serve()
+    for kw in (dict(exec=Exec(telemetry=True, device="cpu")),
+               dict(exec=Exec(cohort=8, device="cpu")),
+               dict(systems=Systems(dropout=0.1)),
+               dict(eval=Eval(holdout_clients=8))):
+        kw.setdefault("exec", Exec(device="cpu"))
+        rep = Experiment(problem=Problem(train=train), **kw).run(0)
+        assert rep.provenance["path"] == "single"
+        assert (rep.provenance["telemetry"] is not None) == \
+            kw["exec"].telemetry
+    with pytest.raises(ValueError, match="only apply to population"):
+        Experiment(problem=Problem(train=train),
+                   systems=Systems(faults=FaultConfig()),
+                   exec=Exec(device="cpu")).run(0)
+    pop = Population(PopulationSpec("p", m=50, d=4, n_min=4, n_max=8), 0)
+    plan = Experiment(problem=Problem(population=pop)).route()
+    assert (plan.path, plan.driver, plan.engine) == ("cohort", "scan",
+                                                    "local")
+    rep = Experiment(problem=Problem(population=pop),
+                     systems=Systems(dropout=0.1),
+                     exec=Exec(cohort=8, device="cpu"),
+                     eval=Eval(holdout_clients=8)).run(0)
+    assert rep.provenance["path"] == "cohort"
+    assert rep.evaluation.summary["holdout_clients"] == 8.0
 
 
 @pytest.mark.parametrize("arch", ["musicgen-medium", "llava-next-mistral-7b",

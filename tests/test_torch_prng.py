@@ -13,7 +13,7 @@ from repro.core.theta import round_key_schedule as jax_key_schedule
 from repro_torch.core.theta import round_key_schedule
 from repro_torch.utils import prng
 
-SEEDS = [0, 1, 7, 4242, 2 ** 31 - 1]
+SEEDS = [0, 1, 7, 4242, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1]
 
 
 def _key(seed):
@@ -69,4 +69,4 @@ def test_prngkey_rejects_out_of_range_seed():
     with pytest.raises(ValueError):
         prng.PRNGKey(-1, device="cpu")
     with pytest.raises(ValueError):
-        prng.PRNGKey(2 ** 31, device="cpu")
+        prng.PRNGKey(2 ** 32, device="cpu")

@@ -222,13 +222,26 @@ def test_router_golden_table(kind, engine, semi, path, driver, falls_back):
 
 @pytest.mark.parametrize("kind", ["silo", "shuffles"])
 def test_router_sharded_and_population_name_their_items(kind):
+    """The sharded engine still names its item; a population now routes to
+    the cohort path, as in the JAX package, on either engine."""
     with pytest.raises(NotImplementedError, match="item 13"):
         ta.route(ta.Experiment(problem=_problem(ta, kind),
                                exec=ta.Exec(engine="sharded")))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ta.route(ta.Experiment(problem=ta.Problem(population=Population(
-            PopulationSpec("pop", m=300, d=12, n_min=12, n_max=32),
-            seed=0))))
+    from repro_torch.cohort import Population as TPopulation
+    from repro_torch.cohort import PopulationSpec as TPopulationSpec
+    spec = dict(name="pop", m=300, d=12, n_min=12, n_max=32)
+    engine = "local" if kind == "silo" else "kernel"
+    jplan = ja.route(ja.Experiment(
+        problem=ja.Problem(population=Population(PopulationSpec(**spec),
+                                                 seed=0)),
+        exec=ja.Exec(engine="pallas" if engine == "kernel" else engine)))
+    tplan = ta.route(ta.Experiment(
+        problem=ta.Problem(population=TPopulation(TPopulationSpec(**spec),
+                                                  seed=0)),
+        exec=ta.Exec(engine=engine)))
+    assert (tplan.path, tplan.driver, tplan.reason) == (
+        jplan.path, jplan.driver, jplan.reason)
+    assert tplan.path == "cohort" and tplan.engine == engine
 
 
 def test_router_single_reg_grid_is_sweep_and_walls_match_jax():
