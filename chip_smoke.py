@@ -53,7 +53,15 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    primal, and a run crashed at block 6 and resumed from its checkpoints
    equal to the uninterrupted run bit for bit; (c) a small population on
    the card against the CPU with telemetry on, the Chrome trace validated;
-   the SDCA kernel timed at the K 256 shape;
+   the SDCA kernel timed at the K 256 shape; then the MOCHA serving tier
+   (``phase_serve_tier``): ``Experiment.serve()`` over CROSS_DEVICE_1M at
+   K 256, a snapshot published every fold, training on a background
+   thread (the kernel engine at overlap 1 and 4, the local engine at
+   overlap 4) while this thread predicts batches of 1,024 uniform clients:
+   serving on equal to ``Experiment.run`` bit for bit, every answer equal
+   to the host rule of its snapshot, max version lag <= 1, 8 publishes +
+   the prewarm, one SDCA launch a kernel-engine block, one capture a
+   local-engine run; predict p50 / p99 and lookups/s;
 7. the LM main path: SmolLM-360M at full width (random weights from seed
    0) through ``repro_torch.serve.Engine.generate``, batch 8, prompt 1024,
    32 new tokens, in f32 and bf16, through the kernels (counters set to 0
@@ -62,7 +70,18 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    route fed the kernel route's tokens) and greedy tokens compared (the
    plain route swaps the plain versions into
    ``repro_torch.models.layers`` for the comparison); a reduced SmolLM on
-   the card against the CPU;
+   the card against the CPU; then the personalization bridge
+   (``phase_personalize``) on SmolLM-360M: features of 8 tasks of 16-72
+   sequences of 128 tokens through the flash kernel (every call within
+   ``flash_tolerance``, the features within 1e-4 of the plain route), MOCHA
+   per-task heads with smooth_hinge on the local engine and hinge on the
+   kernel engine at d 960 (the SDCA kernel's wide carry, also timed) held
+   against the local engine's hinge run; and LM training (``phase_train``)
+   of SmolLM-360M at B 4 x S 512, five AdamW steps in f32 and in bf16 with
+   f32 masters, step 0 of the kernel route against the plain route (its
+   every flash call within ``flash_tolerance``; two planted wrong flash
+   routes must fail the same limits), the loss falling, 32 flash launches
+   a step;
 8. time the SDCA kernel (CUDA events over many launches) beside its bound
    and its chain floor (a model printed on the timing line: chain steps x
    one dependent step counted from the kernel's instructions at assumed
@@ -127,13 +146,21 @@ def kernel_case(spec, *, seed=0, gram=None, dup=False, zero_budget=False,
     ``mid_chunk``: budgets of 3/8 of a pass, none a multiple of the
     chunk.  ``pooled``: the "global" kind's one task of every client's rows
     (``make_global_problem``)."""
-    from repro_torch.core.dual import with_xnorm2
     from repro_torch.data.synthetic import make_federation, make_global_problem
-    from repro_torch.kernels.sdca import draw_coordinates
-    from repro_torch.utils import prng
     data = make_federation(spec, seed=0, device=device)[0]
     if pooled:
         data = make_global_problem(data)
+    return federation_case(data, seed=seed, gram=gram, dup=dup,
+                           zero_budget=zero_budget, zero_mask=zero_mask,
+                           mid_chunk=mid_chunk)
+
+
+def federation_case(data, *, seed=0, gram=None, dup=False,
+                    zero_budget=False, zero_mask=False, mid_chunk=False):
+    """``kernel_case`` of a federation already on the card."""
+    from repro_torch.core.dual import with_xnorm2
+    from repro_torch.kernels.sdca import draw_coordinates
+    from repro_torch.utils import prng
     data = with_xnorm2(data)
     m, n, d = data.X.shape
     rng = np.random.default_rng(seed)
@@ -1891,6 +1918,505 @@ def phase_eval_profile(drivers, rounds=2):
     return row
 
 
+# ---------------------------------------------------------------------------
+# The MOCHA serving tier, the personalization bridge and LM training
+# ---------------------------------------------------------------------------
+
+#: the serving tier's reads: uniformly drawn client ids and random features
+SERVE_BATCH = 1024
+#: the served cohort's size (cohort_1m's larger K)
+SERVE_K = 256
+#: (engine, overlap) of the served cohort_1m runs: the kernel engine (one
+#: SDCA launch a block) at overlap 1 and 4, and the local engine (one
+#: captured round program a run, beside the reads) at overlap 4
+SERVE_RUNS = (("kernel", 1), ("kernel", COHORT_OVERLAP),
+              ("local", COHORT_OVERLAP))
+#: a margin against the host rule's weights: d float32 products summed in
+#: another order
+MARGIN_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _served(before, after, version):
+    """The snapshot a read was answered from (the predictor's mirrored
+    version), of the two current before and after it; None if neither."""
+    for snap in (before, after):
+        if snap.version == version:
+            return snap
+    return None
+
+
+def serve_reads(sess, rng, m, d):
+    """Read on this thread until training ends: ``SERVE_BATCH`` uniform ids
+    with random features a read, each answer held against the host rule
+    of the snapshot it was answered from.  Returns (latencies s, reads
+    checked)."""
+    lat, checked = [], 0
+    while sess.training:
+        ids = rng.integers(0, m, SERVE_BATCH)
+        X = rng.normal(size=(SERVE_BATCH, d)).astype(np.float32)
+        before = sess.store.current()
+        t0 = time.perf_counter()
+        z = sess.predict(ids, X)
+        lat.append(time.perf_counter() - t0)
+        snap = _served(before, sess.store.current(),
+                       sess.predictor.snapshot_version)
+        if snap is None:
+            continue
+        want = np.einsum("bd,bd->b", snap.client_weights(ids), X)
+        if z.shape != (SERVE_BATCH,) or not np.allclose(z, want,
+                                                        **MARGIN_TOL):
+            raise AssertionError(f"serve: an answer of version "
+                                 f"{snap.version} differs from the host rule")
+        checked += 1
+    return lat, checked
+
+
+def phase_serve_tier():
+    """The MOCHA serving tier: ``Experiment.serve()`` over CROSS_DEVICE_1M
+    (10^6 clients, d 32) at K 256 for COHORT_BLOCKS blocks, a snapshot
+    published every fold, training on a background thread while this
+    thread predicts batches of SERVE_BATCH uniformly drawn clients.  Per
+    run: the session's result equal to ``Experiment.run`` bit for bit, the
+    lookup on the card equal to the host rule, every answer equal to the
+    host rule of its snapshot, the max version lag <= 1, COHORT_BLOCKS
+    publishes + the prewarm, one SDCA launch a kernel-engine block and one
+    capture a local-engine run (counters set to 0 just before each session
+    and read just after)."""
+    from repro_torch.api import Serve
+    from repro_torch.cohort import CROSS_DEVICE_1M, Population
+    from repro_torch.core import RoundProgram
+    card = card_line()
+    t_phase = time.perf_counter()
+    pop = Population(CROSS_DEVICE_1M, seed=0)
+    rng = np.random.default_rng(0)
+    rows, launches = {}, 0
+    for engine, overlap in SERVE_RUNS:
+        exp = _cohort_exp(pop, SERVE_K, engine, overlap, rounds=COHORT_BLOCKS)
+        ref, ref_s = _run_timed(exp)
+        before = RoundProgram.captures
+        reset_all_counts()
+        sess = exp.serve(0, Serve(publish_every=1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.start()
+        lat, checked = serve_reads(sess, rng, pop.m, CROSS_DEVICE_1M.d)
+        res = sess.join(600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch = read_counts()["sdca_local_solve"]
+        captures = RoundProgram.captures - before
+        want = (0, COHORT_BLOCKS) if engine == "kernel" else (1, 0)
+        if (captures, n_launch) != want:
+            raise AssertionError(
+                f"serve {engine} overlap {overlap}: {captures} captures, "
+                f"{n_launch} SDCA launches in {COHORT_BLOCKS} blocks "
+                f"(expected {want})")
+        launches += n_launch
+        _same_cohort_bits(f"serve {engine} overlap {overlap}: serving on vs "
+                          "off", ref.result, res)
+        lag = sess.predictor.max_version_lag
+        if sess.store.swap_count != COHORT_BLOCKS + 1 or lag > 1:
+            raise AssertionError(f"serve: {sess.store.swap_count} publishes, "
+                                 f"max version lag {lag}")
+        ids = rng.integers(0, pop.m, SERVE_BATCH)
+        if not np.array_equal(sess.predictor.lookup(ids),
+                              sess.store.current().client_weights(ids)):
+            raise AssertionError("serve: the lookup on the card differs "
+                                 "from the host rule")
+        if not lat:
+            raise AssertionError("serve: no read ran beside training")
+        ms = 1e3 * np.asarray(lat)
+        row = dict(reads=len(lat), reads_checked=checked,
+                   p50_ms=float(np.percentile(ms, 50)),
+                   p99_ms=float(np.percentile(ms, 99)),
+                   lookups_per_s=SERVE_BATCH * len(lat) / float(np.sum(lat)),
+                   max_version_lag=lag, publishes=sess.store.swap_count,
+                   launches=n_launch, captures=captures, wall_s=wall,
+                   unserved_wall_s=ref_s,
+                   final_primal=float(res.history["primal"][-1]))
+        rows[f"{engine}_overlap{overlap}"] = row
+        print(f"serve tier [cross_device_1m K={SERVE_K} {engine} overlap "
+              f"{overlap}, {COHORT_BLOCKS} blocks, publish every fold]: "
+              f"{len(lat)} reads of {SERVE_BATCH} beside training "
+              f"({checked} held against their snapshot's host rule), "
+              f"predict p50 {row['p50_ms']:.3f} ms p99 {row['p99_ms']:.3f} "
+              f"ms, {row['lookups_per_s']:.0f} lookups/s, max version lag "
+              f"{lag}, {row['publishes']} publishes, SDCA launches "
+              f"{n_launch}, captures {captures}; served run {wall:.3f} s vs "
+              f"unserved {ref_s:.3f} s, equal bit for bit [{card}]",
+              flush=True)
+    # the predictor alone (no training beside it), on the final snapshot
+    ids = rng.integers(0, pop.m, SERVE_BATCH)
+    X = rng.normal(size=(SERVE_BATCH, CROSS_DEVICE_1M.d)).astype(np.float32)
+    for _ in range(5):
+        sess.predict(ids, X)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        sess.predict(ids, X)
+    idle_ms = 1e3 * (time.perf_counter() - t0) / 50
+    wall = time.perf_counter() - t_phase
+    print(f"serve tier: predict alone {idle_ms:.3f} ms a batch of "
+          f"{SERVE_BATCH} ({1e3 * SERVE_BATCH / idle_ms:.0f} lookups/s); "
+          f"phase {wall:.1f} s [{card}]", flush=True)
+    return dict(runs=rows, launches=launches, idle_predict_ms=idle_ms,
+                wall_s=wall)
+
+
+#: personalization: SmolLM-360M features of 8 tasks of 16-72 sequences of
+#: 128 tokens, labels from the token topic (tests/test_serve.py:72-100)
+PERS_TASKS, PERS_SEQ = 8, 128
+#: features, kernel route vs plain route: 32 layers of the flash kernel's
+#: f32 rounding, as LOGIT_TOL[float32] holds the logits
+FEAT_TOL = 1e-4
+
+
+def _topic_tasks(vocab):
+    rng = np.random.default_rng(SEED)
+    batches, labels = [], []
+    for t in range(PERS_TASKS):
+        n = 16 + 8 * t
+        lab = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+        lo, hi = (0, vocab // 2) if t % 2 else (vocab // 2, vocab)
+        toks = np.zeros((n, PERS_SEQ), np.int32)
+        for i in range(n):
+            toks[i] = (rng.integers(lo, hi, PERS_SEQ) if lab[i] > 0
+                       else rng.integers(0, vocab, PERS_SEQ))
+        batches.append({"tokens": toks})
+        labels.append(lab)
+    return batches, labels
+
+
+@contextlib.contextmanager
+def held_flash_calls(tally, label):
+    """Every flash_mha call of the model's layers held against the plain
+    version on its inputs within ``flash_tolerance``; ``tally`` gathers
+    the calls and the largest share of the tolerance.  The kernel's output
+    is what the layer gets (and differentiates through)."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_tolerance)
+    from repro_torch.models import layers
+    saved = layers.flash_mha
+
+    def flash(q, k, v, causal=True, window=None):
+        out = saved(q, k, v, causal=causal, window=window)
+        with torch.no_grad():
+            ref = attention_ref(q, k, v, causal=causal, window=window)
+            tol = flash_tolerance(q, k, v, ref, causal=causal,
+                                  window=window)
+            share = float(((out.float() - ref.float()).abs() / tol).max())
+        tally["calls"] = tally.get("calls", 0) + 1
+        tally["share"] = max(tally.get("share", 0.0), share)
+        if share > 1.0:
+            raise AssertionError(f"{label}: a flash call exceeds its "
+                                 f"tolerance ({share:.3f} of it)")
+        return out
+
+    layers.flash_mha = flash
+    try:
+        yield
+    finally:
+        layers.flash_mha = saved
+
+
+def phase_personalize():
+    """The personalization bridge on SmolLM-360M at full width (random
+    weights, seed 0): features through the flash kernel (each call held
+    against the plain version within flash_tolerance, the pooled features
+    against the plain route within FEAT_TOL), then ``fit`` with the default
+    smooth_hinge on the local engine and with hinge on the kernel engine
+    (d 960: the SDCA kernel's wide-carry branch), held against the local
+    engine's hinge run within HISTORY_RTOL; per-task accuracy.  Counters
+    set to 0 just before the path and read just after."""
+    from repro_torch.core import MochaConfig, Probabilistic
+    from repro_torch.core.personalization import PersonalizationBridge
+    card = card_line()
+    t_phase = time.perf_counter()
+    model = _lm_model()
+    cfg = model.cfg
+    batches, labels = _topic_tasks(cfg.vocab_size)
+    bridge = PersonalizationBridge(model, Probabilistic(lam=1e-3,
+                                                        sigma2=10.0))
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fed = bridge.build_federation(batches, labels)
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    res = bridge.fit(fed)
+    kernel_bridge = dataclasses.replace(bridge, mocha=MochaConfig(
+        loss="hinge", rounds=bridge.mocha.rounds, engine="kernel"))
+    res_k = kernel_bridge.fit(fed)
+    accs = [float((torch.sign(bridge.predict(b, res.W[t])).cpu().numpy()
+                   == labels[t]).mean()) for t, b in enumerate(batches)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n_rows = sum(b["tokens"].shape[0] for b in batches)
+    want = {"flash_attention": 2 * PERS_TASKS * cfg.n_layers,
+            "sdca_local_solve": bridge.mocha.rounds, "decode_attention": 0}
+    if counts != want:
+        raise AssertionError(f"personalize launches {counts}, expected "
+                             f"{want}")
+    if fed.X.shape != (PERS_TASKS, 16 + 8 * (PERS_TASKS - 1), cfg.d_model) \
+            or not torch.isfinite(fed.X).all():
+        raise AssertionError(f"personalize: features {tuple(fed.X.shape)}")
+    # the route comparison, outside the counted path
+    tally = {}
+    with held_flash_calls(tally, "personalize"):
+        f_k = bridge.features(batches[-1])
+    with plain_attention():
+        f_p = bridge.features(batches[-1])
+    feat_err = float((f_k - f_p).abs().max())
+    if feat_err > FEAT_TOL * max(1.0, float(f_p.abs().max())):
+        raise AssertionError(f"personalize: features differ by {feat_err:.3e}"
+                             " between the kernel and plain routes")
+    local_hinge = dataclasses.replace(bridge, mocha=MochaConfig(
+        loss="hinge", rounds=bridge.mocha.rounds)).fit(fed)
+    rel = _compare_histories("personalize hinge kernel vs local",
+                             res_k.history, local_hinge.history)
+    if not np.isfinite(res.final("gap")) or np.mean(accs) <= 0.5:
+        raise AssertionError(f"personalize: gap {res.final('gap')}, "
+                             f"accuracy {accs}")
+    kernel = personalize_kernel_timing(fed, card)
+    print(f"personalize [{ARCH} full width, {PERS_TASKS} tasks of 16-72 x "
+          f"{PERS_SEQ} tokens, {n_rows} sequences, d {cfg.d_model}]: "
+          f"launches {counts}; features {1e3 * feat_s:.1f} ms "
+          f"({n_rows * PERS_SEQ / feat_s:.0f} tokens/s), kernel vs plain "
+          f"route max abs err {feat_err:.3e} (tolerance {FEAT_TOL:g} x "
+          f"max(1, max|f|)), {tally['calls']} flash calls within "
+          f"flash_tolerance (largest share {tally['share']:.3f}); "
+          f"smooth_hinge local gap {res.final('gap'):.4g}, hinge kernel "
+          f"(wide carry) vs local history max rel diff {rel:.3e}; per-task "
+          f"accuracy {[round(a, 3) for a in accs]}; path wall {wall:.2f} s "
+          f"[{card}]", flush=True)
+    return dict(counts=counts, feature_err=feat_err,
+                flash_share=tally["share"], kernel_vs_local_rel=rel,
+                accuracy=accs, features_ms=1e3 * feat_s, wall_s=wall,
+                phase_s=time.perf_counter() - t_phase, kernel=kernel)
+
+
+def personalize_kernel_timing(fed, card):
+    """The SDCA kernel at the personalization federation's shape (8 tasks x
+    72 rows x d 960: the wide-carry branch, r in shared memory), held
+    against its plain version and timed beside its bound."""
+    from repro_torch.kernels import sdca as K
+    case = federation_case(fed)
+    err = check_kernel("personalize federation 8 x 72 x 960 (wide carry)",
+                       case, KERNEL_TOL)
+    kernel = lambda: K.sdca_local_solve(**case)   # noqa: E731
+    plain = lambda: K.sdca_ref(**_plain_args(case))   # noqa: E731
+    for _ in range(3):
+        kernel()
+    ms = _events_ms(kernel, 50)
+    device_ms = _device_ms_per_call(lambda c: K.sdca_local_solve(**c),
+                                    [case], 20, ("sdca_kernel",))
+    plain()
+    plain_ms = _events_ms(plain, 3)
+    b = bound(case)
+    print(f"personalize timing [SDCA at 8 x 72 x 960 {b['mode']}]: kernel "
+          f"{ms:.4f} ms/call (device {device_ms:.4f}), plain {plain_ms:.3f} "
+          f"ms/call, bound {b['bound_ms']:.5f} ms ({b['bound_by']}) "
+          f"[{card}]", flush=True)
+    return dict(shape="m=8 n=72 d=960", mode=b["mode"], ms=ms,
+                device_ms=device_ms, plain_ms=plain_ms,
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                max_abs_err=err)
+
+
+#: LM training: SmolLM-360M at full width, B 4 x S 512 from the TokenStream
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 5
+#: step 0, kernel route vs plain route: ce and grad_norm relative, and the
+#: layer-0 gradients of wq and w_down relative to their largest |g|.  The
+#: two routes differ only in the flash kernel's forward, each of its calls
+#: held to flash_tolerance on its own inputs (``held_flash_calls``); the
+#: backward passes are the same plain recompute.  The limits are a few
+#: times the readings on an H100 80GB HBM3 at 700 W (this script): f32 ce 0,
+#: grad_norm 7.9e-8, gradients 1.1e-6 / 6.5e-7; bf16 ce 8.2e-5, grad_norm
+#: 6.0e-5, gradients 7.3e-3 / 7.8e-3 (2^-7: one bf16 step at the leaf's
+#: scale).  ``TRAIN_PLANTS`` are wrong flash routes the limits must fail.
+TRAIN_TOL = {torch.float32: (1e-6, 1e-5), torch.bfloat16: (5e-4, 3e-2)}
+TRAIN_PLANTS = ("causal mask dropped", "causal mask dropped in the backward")
+
+
+@contextlib.contextmanager
+def planted_flash(plant):
+    """A deliberately wrong flash route, to show that TRAIN_TOL fails it:
+    the causal mask dropped in the kernel's forward and its recompute, or
+    only in the backward's plain recompute (a fault the per-call forward
+    check cannot see)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import layers
+    if plant == TRAIN_PLANTS[0]:
+        mod, name = layers, "flash_mha"
+    else:
+        mod, name = ops, "attention_ref"
+    saved = getattr(mod, name)
+    setattr(mod, name, lambda q, k, v, causal=True, window=None: saved(
+        q, k, v, causal=False, window=window))
+    try:
+        yield
+    finally:
+        setattr(mod, name, saved)
+
+
+def _step0_readings(step0, plain, dtype):
+    """(ce and grad_norm relative, layer-0 wq / w_down gradients of max|g|,
+    whether both are within TRAIN_TOL) of a route against the plain one."""
+    (g_k, m_k), (g_p, m_p) = step0, plain
+    rel = {k: abs(m_k[k] - m_p[k]) / abs(m_p[k]) for k in ("ce", "grad_norm")}
+    g_rel = [float((a.float() - b.float()).abs().max())
+             / float(b.float().abs().max()) for a, b in zip(g_k, g_p)]
+    rel_tol, g_tol = TRAIN_TOL[dtype]
+    return rel, g_rel, max(rel.values()) <= rel_tol and max(g_rel) <= g_tol
+
+
+def _train_run(dtype):
+    """Step 0's gradients on the kernel route (every flash call held to
+    flash_tolerance), the plain route and the planted routes, then
+    TRAIN_STEPS AdamW steps on the kernel route (counters set to 0 just
+    before, read just after)."""
+    from repro_torch.data.tokens import DataConfig, TokenStream
+    from repro_torch.train.loop import (TrainConfig, init_train_state,
+                                        make_grad_fn, make_train_step)
+    model = _lm_model()
+    tc = TrainConfig(compute_dtype=dtype,
+                     master_weights=dtype != torch.float32)
+    params, state = init_train_state(model, tc)
+    batches = list(TokenStream(model.cfg, DataConfig(
+        seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH)).batches(TRAIN_STEPS))
+    grad_fn = make_grad_fn(model, tc)
+
+    def step0():
+        g, m = grad_fn(params, batches[0])
+        return ((g["blocks"][0]["attn"]["wq"], g["blocks"][0]["mlp"]["w_down"]),
+                {k: float(v) for k, v in m.items()})
+
+    tally = {}
+    with held_flash_calls(tally, f"train {str(dtype)[6:]} step 0"):
+        kernel0 = step0()
+    with plain_attention():
+        plain0 = step0()
+    planted = {}
+    for plant in TRAIN_PLANTS:
+        with planted_flash(plant):
+            planted[plant] = _step0_readings(step0(), plain0, dtype)
+    step = make_train_step(model, tc)
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    for b in batches:
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, b)
+        losses.append(float(metrics["loss"]))    # waits for the step
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    profile = train_step_profile(lambda: step(params, state, batches[0]))
+    return dict(losses=losses, counts=counts, step_ms=step_ms,
+                peak_gb=peak_gb, profile=profile,
+                step0=_step0_readings(kernel0, plain0, dtype),
+                held=tally, planted=planted,
+                n_params=sum(p.numel() for p in model.parameters()),
+                n_layers=model.cfg.n_layers)
+
+
+def train_step_profile(step):
+    """One more train step under torch.profiler: its wall, the device's
+    busy time and kernels, the top kernels by device time and the flash
+    kernel's share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and "CUDA" in str(e.device_type)]
+    busy = sum(_device_ms(e) for e in events)
+    top = sorted(events, key=lambda e: -_device_ms(e))[:6]
+    flash = sum(_device_ms(e) for e in events
+                if any(k in e.key for k in _PROFILE_KERNELS["flash"]))
+    return dict(wall_ms=1e3 * wall, device_ms=busy,
+                kernels=sum(e.count for e in events), flash_ms=flash,
+                top=[(e.key[:50], e.count, _device_ms(e)) for e in top])
+
+
+def phase_train():
+    """LM training: SmolLM-360M at full width (random weights, seed 0), B 4
+    x S 512 from the port's TokenStream, TRAIN_STEPS AdamW steps in float32
+    and in bf16 with f32 master weights; step 0's ce, grad_norm and the
+    layer-0 gradients of wq and w_down, kernel route vs plain route within
+    TRAIN_TOL, each of step 0's 32 flash calls within flash_tolerance of
+    the plain version on its inputs, and each of TRAIN_PLANTS outside
+    TRAIN_TOL; the loss falls; 32 flash launches a step."""
+    card = card_line()
+    out, launches = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        r = _train_run(dtype)
+        name = str(dtype)[6:]
+        rel_tol, g_tol = TRAIN_TOL[dtype]
+        rel, g_rel, within = r["step0"]
+        want = {"flash_attention": r["n_layers"] * TRAIN_STEPS,
+                "decode_attention": 0, "sdca_local_solve": 0}
+        if r["counts"] != want:
+            raise AssertionError(f"train {name}: launches {r['counts']}, "
+                                 f"expected {want}")
+        if r["held"].get("calls") != r["n_layers"] or not within:
+            raise AssertionError(f"train {name}: step 0 kernel vs plain "
+                                 f"route {rel}, gradients {g_rel}, flash "
+                                 f"calls held {r['held']}")
+        for plant, (p_rel, p_g, p_within) in r["planted"].items():
+            if p_within:
+                raise AssertionError(f"train {name}: the planted fault "
+                                     f"({plant}) passes TRAIN_TOL: {p_rel},"
+                                     f" gradients {p_g}")
+        losses = r["losses"]
+        if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train {name}: the loss did not fall: "
+                                 f"{losses}")
+        launches += r["counts"]["flash_attention"]
+        ms = float(np.mean(r["step_ms"][1:]))
+        row = dict(losses=losses, step_ms=r["step_ms"], ms_per_step=ms,
+                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+                   peak_gb=r["peak_gb"], step0_rel=rel, grad_rel=g_rel,
+                   flash_share=r["held"]["share"],
+                   planted={k: dict(rel=v[0], grad_rel=v[1])
+                            for k, v in r["planted"].items()},
+                   launches=r["counts"]["flash_attention"])
+        out[name] = row
+        print(f"train [{ARCH} full width, {r['n_params'] / 1e6:.1f}M params,"
+              f" {name}{' + f32 masters' if dtype != torch.float32 else ''},"
+              f" B{TRAIN_BATCH} x S{TRAIN_SEQ}, AdamW]: loss "
+              f"{[round(x, 4) for x in losses]}; step 0 kernel vs plain "
+              f"route ce {rel['ce']:.2e}, grad_norm {rel['grad_norm']:.2e} "
+              f"(tolerance {rel_tol:g}), layer-0 wq / w_down gradients "
+              f"{g_rel[0]:.2e} / {g_rel[1]:.2e} of max|g| (tolerance "
+              f"{g_tol:g}), {r['held']['calls']} flash calls within "
+              f"flash_tolerance (largest share {r['held']['share']:.3f}); "
+              + "".join(f"planted ({k}): ce {v[0]['ce']:.2e}, grad_norm "
+                        f"{v[0]['grad_norm']:.2e}, gradients {v[1][0]:.2e} / "
+                        f"{v[1][1]:.2e}, fails the limits; "
+                        for k, v in r["planted"].items())
+              + f"{ms:.1f} ms/step (steps 1-{TRAIN_STEPS - 1}; "
+              f"step 0 {r['step_ms'][0]:.1f}), {row['tokens_per_s']:.0f} "
+              f"tokens/s, peak {r['peak_gb']:.2f} GiB, flash launches "
+              f"{row['launches']} [{card}]", flush=True)
+        prof = row["profile"] = r["profile"]
+        print(f"train profile [{name}, one step]: wall "
+              f"{prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['device_ms']:.1f} ms "
+              f"({100 * prof['device_ms'] / prof['wall_ms']:.1f}%), "
+              f"{prof['kernels']} device kernels, flash kernel "
+              f"{prof['flash_ms']:.3f} ms; top by device time: "
+              + "; ".join(f"{k} x{c} {ms:.2f} ms" for k, c, ms in
+                          prof["top"]) + f" [{card}]", flush=True)
+    return dict(runs=out, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1908,9 +2434,12 @@ def main() -> int:
     eval_launches = (eval_path["grids"]["kernel_grid_launches"]
                      + eval_path["grids"]["global_launches"])
     cohort = phase_cohort_path()
+    serve_tier = phase_serve_tier()
     phase_small_reference()
     lm = phase_lm_main_path()
     phase_lm_small_reference()
+    pers = phase_personalize()
+    train = phase_train()
     shapes = phase_timing(main_runs, errs)
     phase_profile(main_runs)
     attn = phase_attention_timing(attn_errs)
@@ -1921,32 +2450,41 @@ def main() -> int:
     head = shapes["vehicle_sensor"]
     shapes["cohort_k256"] = dict(cohort["kernel"],
                                  max_abs_err=errs["cohort"])
+    shapes["personalize_d960"] = pers["kernel"]
+    sdca_paths = {"mocha_main": launches, "eval_kernel_grids": eval_launches,
+                  "cohort": cohort["launches"],
+                  "serve": serve_tier["launches"],
+                  "personalize": pers["counts"]["sdca_local_solve"]}
+    flash_paths = {"lm_generate": sum(lm[dt]["counts"]["flash_attention"]
+                                      for dt in ("float32", "bfloat16")),
+                   "personalize": pers["counts"]["flash_attention"],
+                   "train": train["launches"]}
+    decode_paths = {"lm_generate": sum(lm[dt]["counts"]["decode_attention"]
+                                       for dt in ("float32", "bfloat16"))}
     kernels = [dict(
         name="sdca_local_solve", route="cuda",
         source="src/repro_torch/kernels/sdca/csrc/sdca.cu",
         replaces="src/repro/kernels/sdca/sdca.py:45",
-        launches=launches + eval_launches + cohort["launches"],
-        launches_by_path={"mocha_main": launches,
-                          "eval_kernel_grids": eval_launches,
-                          "cohort": cohort["launches"]},
-        max_abs_err=max(errs.values()),
+        launches=sum(sdca_paths.values()), launches_by_path=sdca_paths,
+        max_abs_err=max(*errs.values(), pers["kernel"]["max_abs_err"]),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=None,
         shapes=shapes)]
-    for name, counter, source, replaces in (
+    for name, counter, source, replaces, paths in (
             ("flash", "flash_attention",
              "src/repro_torch/kernels/flash_attention/csrc/"
              "flash_attention.cu",
-             "src/repro/kernels/flash_attention/flash_attention.py:27"),
+             "src/repro/kernels/flash_attention/flash_attention.py:27",
+             flash_paths),
             ("decode", "decode_attention",
              "src/repro_torch/kernels/decode_attention/csrc/"
              "decode_attention.cu",
-             "src/repro/kernels/decode_attention/decode_attention.py:24")):
+             "src/repro/kernels/decode_attention/decode_attention.py:24",
+             decode_paths)):
         f32, bf16 = attn[(name, "float32")], attn[(name, "bfloat16")]
         kernels.append(dict(
             name=counter, route="cuda", source=source, replaces=replaces,
-            launches=sum(lm[dt]["counts"][counter]
-                         for dt in ("float32", "bfloat16")),
+            launches=sum(paths.values()), launches_by_path=paths,
             max_abs_err=max(f32["max_abs_err"], bf16["max_abs_err"]),
             ms=f32["ms"], plain_ms=f32["plain_ms"],
             bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
@@ -1955,6 +2493,9 @@ def main() -> int:
     print(json.dumps({"serve_ms": serve}))
     print(json.dumps({"eval_path": eval_path}))
     print(json.dumps({"cohort_path": cohort}))
+    print(json.dumps({"serve_tier": serve_tier}))
+    print(json.dumps({"personalize": pers}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,16 +16,19 @@ population (``Problem(population=...)``, with ``Eval(holdout_clients=...)``);
 ``Exec(telemetry=True)`` or ``Exec(trace_dir=...)`` records spans and
 metrics on any path.  ``report.provenance`` records the path, the inner
 driver, the fallback reason, the engine, the resolved gram crossover, the
-device and the card's name.  Serving (``Serve``, ``serve_experiment``) is
-not in the port yet (ROADMAP.md Queue 1 item 12).
+device and the card's name.  ``Experiment.serve(seed, Serve(...))``
+(``serve_experiment``) serves a population's per-client models from
+atomically swapped snapshots while its cohort run trains.
 """
-from repro_torch.api.execute import base_provenance, run_experiment
+from repro_torch.api.execute import (base_provenance, run_experiment,
+                                     serve_experiment)
 from repro_torch.api.report import PROVENANCE_KEYS, Report
 from repro_torch.api.router import (INNER_DRIVERS, PATHS, RoutePlan,
                                     batch_incompatibility, route)
 from repro_torch.api.specs import (PROBLEM_KINDS, Eval, Exec, Experiment,
-                                   Method, Problem, Systems, as_cohort_config,
-                                   as_mocha_config, config_fingerprint)
+                                   Method, Problem, Serve, Systems,
+                                   as_cohort_config, as_mocha_config,
+                                   config_fingerprint)
 from repro_torch.core.evaluate import METRICS, EvalReport
 
 __all__ = [
@@ -35,12 +38,14 @@ __all__ = [
     "Systems",
     "Exec",
     "Eval",
+    "Serve",
     "Report",
     "EvalReport",
     "RoutePlan",
     "route",
     "batch_incompatibility",
     "run_experiment",
+    "serve_experiment",
     "as_mocha_config",
     "as_cohort_config",
     "config_fingerprint",

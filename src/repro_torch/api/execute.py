@@ -1,6 +1,7 @@
 """Experiment execution: route, run, evaluate, stamp provenance.
 
-``run_experiment`` is the one function behind ``Experiment.run``.  The
+``run_experiment`` is the one function behind ``Experiment.run`` and
+``serve_experiment`` the one behind ``Experiment.serve``.  The
 single path is the core driver (``repro_torch.core.mocha``), the batched
 grid is the sweep (``repro_torch.core.sweep``), the grid fallback runs the
 core driver cell by cell, and the cross-device path is the cohort block
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Any, Dict, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,7 +20,7 @@ import torch
 from repro_torch import obs
 from repro_torch.api.report import Report
 from repro_torch.api.router import RoutePlan, route
-from repro_torch.api.specs import (Experiment, as_cohort_config,
+from repro_torch.api.specs import (Experiment, Serve, as_cohort_config,
                                    as_mocha_config, config_fingerprint)
 from repro_torch.cohort.driver import _run_cohort
 from repro_torch.core import evaluate as eval_mod
@@ -220,7 +221,8 @@ def _run_grid_path(exp: Experiment, seed: Seed, plan: RoutePlan,
 def _cohort_report(exp: Experiment, plan: RoutePlan, s: int, res) -> Report:
     """Report of a finished cohort run: held-out clients (when
     ``Eval.holdout_clients`` is set) and the provenance with the run's
-    fault accounting."""
+    fault accounting.  Shared by the batch path (``_run_cohort_path``) and
+    the serving path (``serve_experiment``), so the two report alike."""
     evaluation = None
     if exp.eval.holdout_clients > 0:
         evaluation = eval_mod.evaluate_cohort(
@@ -241,3 +243,35 @@ def _run_cohort_path(exp: Experiment, seed: Seed, plan: RoutePlan,
     res = _run_cohort(exp.problem.population, exp.method.regularizers[0], cfg,
                       telemetry=tel)
     return _cohort_report(exp, plan, s, res)
+
+
+def serve_experiment(exp: Experiment, seed: Seed = 0,
+                     serve: Optional[Serve] = None):
+    """The function behind ``Experiment.serve()``: an online
+    ``repro_torch.serve.ServeSession`` over the experiment's cohort run, on
+    the run's device.  Raises for experiments the router would not send
+    down the cohort path -- serving is a population-scale feature.  The
+    session's ``report()`` gives the evaluation and provenance (telemetry
+    included) that ``Experiment.run`` gives on the finished result.
+    """
+    from repro_torch.serve.refresh import ServeSession
+    spec = serve if serve is not None else Serve()
+    plan = route(exp)
+    if plan.path != "cohort":
+        raise ValueError(
+            "Experiment.serve() needs a population-scale problem (cohort "
+            f"path); the router picked {plan.path!r}"
+            + (f" because {plan.reason}" if plan.reason else ""))
+    tel = obs.telemetry(exp.exec.telemetry or exp.exec.trace_dir is not None)
+    s = _scalar_seed(seed)
+    cfg = as_cohort_config(exp, seed=s)
+
+    def build_report(res) -> Report:
+        report = _cohort_report(exp, plan, s, res)
+        _finalize_telemetry(exp, tel, s, report)
+        return report
+
+    return ServeSession(exp.problem.population, exp.method.regularizers[0],
+                        cfg, publish_every=spec.publish_every,
+                        prewarm=spec.prewarm, telemetry=tel,
+                        report_builder=build_report)

@@ -14,10 +14,11 @@
 
 ``Experiment.run(seed)`` routes (``router.route``) and runs it
 (``execute.run_experiment``) on the single, sweep, grid or cohort path.
+``Experiment.serve(seed, Serve(...))`` (``execute.serve_experiment``)
+attaches the online prediction tier to a population's cohort run.
 ``as_mocha_config`` / ``as_cohort_config`` build the drivers' configs from
-the specs.  The sharded engine's fields (``Exec.mesh``/``comm_dtype``) and
-serving (``Experiment.serve``) raise ``NotImplementedError`` naming their
-ROADMAP items.
+the specs.  The sharded engine's fields (``Exec.mesh``/``comm_dtype``)
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -243,8 +244,30 @@ class Eval:
 
 
 @dataclasses.dataclass(frozen=True)
+class Serve:
+    """Online-serving sub-spec for ``Experiment.serve()``.
+
+    ``publish_every`` is the snapshot refresh cadence in folded blocks (1 =
+    every fold publishes).  ``prewarm`` publishes the deterministic cold
+    state as version 0 before training starts, so predictions are
+    answerable from t=0 (cold clients resolve to their cluster centroid).
+    Serving never changes training: a run with a ``ServeSession`` attached
+    gives the bits of ``Experiment.run``, as ``Exec.telemetry`` does.
+    """
+
+    publish_every: int = 1
+    prewarm: bool = True
+
+    def __post_init__(self):
+        if self.publish_every < 1:
+            raise ValueError(
+                f"need publish_every >= 1 folds, got {self.publish_every}")
+
+
+@dataclasses.dataclass(frozen=True)
 class Experiment:
-    """A fully described experiment; ``run(seed)`` executes it."""
+    """A fully described experiment; ``run(seed)`` executes it,
+    ``serve(seed)`` serves it while it trains (populations only)."""
 
     problem: Problem
     method: Method = Method()
@@ -256,10 +279,15 @@ class Experiment:
         from repro_torch.api.execute import run_experiment
         return run_experiment(self, seed)
 
-    def serve(self, seed: int = 0, serve=None):
-        raise NotImplementedError(
-            "Experiment.serve is not in the port yet (ROADMAP.md Queue 1 "
-            "item 12, its serving half: serve/store, predict, refresh)")
+    def serve(self, seed: int = 0,
+              serve: Optional[Serve] = None) -> "ServeSession":
+        """An online ``repro_torch.serve.ServeSession`` over this
+        experiment: cohort training streams in the background (``start()``
+        / ``join()``, or inline ``run()``) while ``predict(ids, X)``
+        answers from atomically swapped snapshots, on the run's device.
+        Cohort-routed populations only."""
+        from repro_torch.api.execute import serve_experiment
+        return serve_experiment(self, seed, serve)
 
     def route(self) -> "RoutePlan":
         from repro_torch.api.router import route

@@ -76,7 +76,7 @@ from __future__ import annotations
 import dataclasses
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -353,6 +353,10 @@ class _BlockLoop:
         #: nothing was solved), keeping the history NaN-free and resumable
         self._last_metrics = (0.0, 0.0, 0.0)  # owner: main
         self._last_clock: Optional[dict] = None  # owner: main
+        #: post-fold hook, called on the fold thread AFTER block b merges
+        #: (so it may read main-owned state); wired at launch time, before
+        #: any block runs.  The serve tier's snapshot publisher lives here.
+        self.on_fold: Optional[Callable[[int], None]] = None  # owner: main
         #: launch-time (alpha0, omega0) of launched-but-unfolded blocks;
         #: checkpointed so staleness >= 1 resumes replay the EXACT staler
         #: state those launches read (dict empty unless checkpointing)
@@ -599,6 +603,8 @@ class _BlockLoop:
                 self._launch_snaps.pop(b, None)
                 if self._ckpt.due(b):
                     self._ckpt.save(self, b)
+        if self.on_fold is not None:
+            self.on_fold(b)
 
     def checkpoint_on_failure(self) -> None:  # worker: main
         """Force-save the merge frontier before a failure propagates.

@@ -159,10 +159,12 @@ def evaluate_cohort(pop, relationship, loss: Loss, n_clients: int,
     """Per-cluster held-out-client evaluation of a cross-device run.
 
     Materializes ``n_clients`` held-out clients (``holdout_client_ids``),
-    scores each against its served weights (``ClusterOmega.
-    client_weights``: cluster centroid plus cached personal delta, the bare
-    centroid for a cold client) on the host, and aggregates by learned
-    cluster assignment.
+    scores each on the host against its SERVED weights -- exactly what the
+    online tier would answer: ``relationship.client_weights`` applies the
+    resolution rule (cluster centroid plus cached personal delta, the bare
+    centroid for a cold client) that the serve tier's snapshots apply,
+    ``repro_torch.cohort.omega.resolve_weights`` -- and aggregates by
+    learned cluster assignment.
     """
     metrics = _check_metrics(metrics)
     ids = holdout_client_ids(pop.m, n_clients, seed, participation)

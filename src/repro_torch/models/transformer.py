@@ -2,13 +2,16 @@
 for dense attention blocks.
 
 ``Model`` is an ``nn.Module`` that holds its parameters (float32, no
-gradients) in the JAX package's tree layout with blocks as a list:
+gradients until ``train.loop.init_train_state`` makes them trainable) in
+the JAX package's tree layout with blocks as a list:
 ``{"final_norm", "embed", ["lm_head"], "blocks": [{"norm1", "attn",
 "norm2", "mlp"}, ...]}``.  Its methods mirror the JAX API without the
 params argument:
 
   init(seed)                                  random weights, in place
   apply(batch, dtype) -> (logits, aux)        full-sequence forward
+  forward(W, batch, dtype) -> (logits, aux)   the same over a tree ``W``
+                                              (differentiable: training)
   features(batch, dtype) -> (B, S, D)         final hidden
   init_cache(batch, max_len, dtype) -> cache
   prefill(batch, cache, dtype) -> (logits_last, cache)
@@ -198,11 +201,17 @@ class Model(nn.Module):
             return h @ W["embed"].to(dt).T
         return h @ W["lm_head"].to(dt)
 
-    def apply(self, batch: Dict[str, torch.Tensor],
-              dtype: torch.dtype = torch.float32):
-        W = self.weights(dtype)
+    def forward(self, W: Params, batch: Dict[str, torch.Tensor],
+                dtype: torch.dtype = torch.float32):
+        """Full-sequence logits over the parameter tree ``W`` (this model's
+        layout; the layers cast matrices to ``dtype`` at use).  Autograd
+        flows to ``W``'s leaves; ``aux`` is empty for the dense family."""
         h, _ = self._backbone(W, batch, None, None, dtype)
         return self.logits(W, h), {}
+
+    def apply(self, batch: Dict[str, torch.Tensor],
+              dtype: torch.dtype = torch.float32):
+        return self.forward(self.weights(dtype), batch, dtype)
 
     def features(self, batch: Dict[str, torch.Tensor],
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:

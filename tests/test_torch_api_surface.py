@@ -3,7 +3,8 @@
 ``repro_torch.api.__all__``, every spec's fields (in order: a positional
 spec binds the same fields in both packages) and the config views are held
 to ``tests/test_api_surface.py``'s golden data, with the port's listed
-additions and without what is not ported yet.
+additions and without what is not ported yet (nothing, since the serving
+half landed: ``Serve`` and ``serve_experiment`` are held to the snapshot).
 """
 import dataclasses
 
@@ -15,8 +16,8 @@ from repro_torch.core.mocha import MochaConfig
 
 #: names the port adds to ``__all__``
 ADDED_ALL = {"INNER_DRIVERS"}
-#: what ROADMAP.md Queue 1 item 12 (its serving half) still owns
-NOT_YET = {"Serve", "serve_experiment"}
+#: names of the JAX package's surface the port does not have yet
+NOT_YET = set()
 #: fields the port appends to a spec or config view
 ADDED_FIELDS = {"Exec": ("device",), MochaConfig: ("device",)}
 #: provenance keys the port adds after ``backend``
@@ -32,6 +33,7 @@ def test_api_all_snapshot():
 
 
 def test_spec_field_snapshot():
+    assert "Serve" in golden.EXPECTED_FIELDS
     for name, fields in golden.EXPECTED_FIELDS.items():
         if name in NOT_YET:
             continue

@@ -6,6 +6,8 @@ which imports JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -658,3 +660,161 @@ def test_cohort_resume_equals_the_uninterrupted_run_on_the_card(tmp_path):
                       checkpoint_dir=str(tmp_path), resume=True).run(0)
     assert res.result.resumed_from == 4    # the frontier at the crash
     _same_cohort_bits(ref.result, res.result)
+
+
+def _serve_reads(sess, ids, X):
+    """Reads on the caller's thread until training ends: (answers, each
+    with the snapshot it was read under, or None when a swap raced it)."""
+    reads = []
+    while sess.training:
+        snap = sess.store.current()
+        z = sess.predict(ids, X)
+        same = sess.predictor.snapshot_version == snap.version
+        reads.append((z, snap if same else None))
+    return reads
+
+
+@pytest.mark.cuda
+def test_device_lookup_equals_the_host_rule():
+    """The Predictor's lookup on the card (gather, searchsorted over the
+    cached ids, where) equals the host rule bit for bit; margins within f32
+    rounding of the host dot product."""
+    from repro_torch.serve import Predictor, ServedSnapshot, SnapshotStore
+    dev = _card()
+    res = _cohort_exp(rounds=4).run(0).result
+    store = SnapshotStore()
+    store.publish(ServedSnapshot.from_state(res.relationship))
+    pred = Predictor(store)
+    assert pred.device.type == "cuda"
+    ids = np.random.default_rng(0).integers(0, res.relationship.m, 1024)
+    host = store.current().client_weights(ids)
+    np.testing.assert_array_equal(pred.lookup(ids), host)
+    X = np.random.default_rng(1).normal(size=(1024, 32)).astype(np.float32)
+    np.testing.assert_allclose(pred.predict(ids, X),
+                               np.einsum("bd,bd->b", host, X), rtol=1e-5,
+                               atol=1e-6)
+    assert dev.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,overlap", [("local", 1), ("local", 4),
+                                            ("kernel", 2)])
+def test_experiment_serve_on_the_card_equals_run(engine, overlap):
+    """Serving on (a background training thread, reads on this thread
+    throughout, the local engine's capture beside them) gives the bits of
+    ``Experiment.run``; every answer equals the host rule on the snapshot
+    it was read under."""
+    from repro_torch.api import Serve
+    from repro_torch.core import RoundProgram
+    _card()
+    exp = _cohort_exp(engine=engine, overlap=overlap)
+    ref = exp.run(0)
+    before = RoundProgram.captures
+    K.reset_counts()
+    sess = exp.serve(0, Serve(publish_every=1))
+    ids = np.random.default_rng(2).integers(0, 2000, 256)
+    X = np.random.default_rng(3).normal(size=(256, 32)).astype(np.float32)
+    sess.start()
+    reads = _serve_reads(sess, ids, X)
+    res = sess.join(600)
+    assert RoundProgram.captures - before == (engine == "local")
+    assert K.COUNTS["sdca_local_solve"] == (8 if engine == "kernel" else 0)
+    _same_cohort_bits(ref.result, res)
+    assert sess.snapshot_version == 8 and sess.predictor.max_version_lag <= 1
+    for z, snap in reads:
+        if snap is not None:
+            np.testing.assert_allclose(
+                z, np.einsum("bd,bd->b", snap.client_weights(ids), X),
+                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,window", [(5, None), (1, 64)])
+def test_flash_mha_gradients_on_the_card(dtype, hkv, window):
+    """The differentiable flash_mha: the kernel's forward (one launch) within
+    flash_tolerance of the plain version, and its backward (the plain
+    recompute) equal to differentiating the plain version directly, for
+    the same upstream gradient, in f32 and bf16 (bf16 accumulating in
+    f32 inside the recompute): the same arithmetic, held to one unit in the
+    last place of the leaf's scale (cuBLAS may pick another algorithm)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    shapes = [(2, 256, 15, 64), (2, 256, hkv, 64), (2, 256, hkv, 64)]
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(dtype)
+               for s in shapes)
+    up = torch.randn(shapes[0], generator=g, device=dev).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    FA.reset_counts()
+    out = FA.flash_mha(*leaves, causal=True, window=window)
+    grads = torch.autograd.grad(out, leaves, up)
+    torch.cuda.synchronize()
+    assert FA.COUNTS["flash_attention"] == 1
+    plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain = FA.attention_ref(*plain_leaves, causal=True, window=window)
+    want = torch.autograd.grad(plain, plain_leaves, up)
+    tol = FA.flash_tolerance(q, k, v, plain.detach(), causal=True,
+                             window=window)
+    assert bool(((out.float() - plain.float()).abs() <= tol).all())
+    ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -23
+    for a, b in zip(grads, want):
+        assert a.dtype == dtype
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= ulp * scale
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The plain attention in place of the flash kernel in the model's
+    layers (differentiated directly), for the route comparison only."""
+    from repro_torch.models import layers
+    saved = layers.flash_mha
+    layers.flash_mha = FA.attention_ref
+    try:
+        yield
+    finally:
+        layers.flash_mha = saved
+
+
+def _train_route(dtype, plain):
+    """One train step of a reduced SmolLM (2 layers, d 128, 4 heads of 32)
+    on the card, kernel or plain attention: (metrics, grads)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import (TrainConfig, init_train_state,
+                                        make_grad_fn, make_train_step)
+    cfg = get_config("smollm-360m").reduced()
+    model = build_model(cfg, seed=0)
+    tc = TrainConfig(compute_dtype=dtype,
+                     master_weights=dtype != torch.float32)
+    params, state = init_train_state(model, tc)
+    batch = next(TokenStream(cfg, DataConfig(seq_len=128,
+                                             batch_size=4)).batches(1))
+    with _plain_attention() if plain else contextlib.nullcontext():
+        grads, metrics = make_grad_fn(model, tc)(params, batch)
+        make_train_step(model, tc)(params, state, batch)
+    return metrics, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_step_kernel_route_matches_plain_route(dtype):
+    """One train step through the flash kernel (2 launches a forward, 4
+    with the gradient pass and the step) against the plain attention: ce
+    and grad_norm within 1e-4 (f32) / 2e-2 (bf16) relative, every gradient
+    within 1e-3 / 5e-2 of its leaf's largest |g| (the kernel's forward
+    rounding carried through two layers' backward passes)."""
+    from repro_torch.train.optimizer import tree_leaves
+    _card()
+    rel, grel = ((1e-4, 1e-3) if dtype == torch.float32 else (2e-2, 5e-2))
+    FA.reset_counts()
+    km, kg = _train_route(dtype, plain=False)
+    assert FA.COUNTS["flash_attention"] == 4
+    pm, pg = _train_route(dtype, plain=True)
+    for key in ("ce", "grad_norm"):
+        assert abs(float(km[key]) - float(pm[key])) <= rel * abs(
+            float(pm[key])), key
+    for a, b in zip(tree_leaves(kg), tree_leaves(pg)):
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= grel * scale

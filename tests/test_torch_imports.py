@@ -27,7 +27,12 @@ for sub in ("configs.smollm_360m", "models.layers", "models.transformer",
             "serve.engine", "launch.serve", "kernels.build",
             "kernels.flash_attention.ops", "kernels.decode_attention.ops",
             "cohort", "cohort.driver", "cohort.packing", "cohort.resilience",
-            "obs", "obs.summarize", "train.checkpoint", "utils.timing"):
+            "obs", "obs.summarize", "train.checkpoint", "utils.timing",
+            "serve.store", "serve.predict", "serve.refresh",
+            "core.personalization", "data.tokens", "train.losses",
+            "train.optimizer", "train.loop", "launch.train",
+            "examples.personalize", "examples.serve_cohort",
+            "examples.train_lm"):
     assert "repro_torch." + sub in names, sub
 print(len(names))
 """
@@ -54,18 +59,33 @@ def test_chip_smoke_imports_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["federation", "experiment", "convert",
-                                   "model", "serve"])
+                                   "model", "serve", "serve_session",
+                                   "predictor", "personalize", "train"])
 def test_default_device_is_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present; the default device is available")
     from repro_torch.api import Exec, Experiment, Problem
+    from repro_torch.cohort import Population, PopulationSpec
     from repro_torch.configs import get_config
     from repro_torch.convert import state_from_numpy
     from repro_torch.data.synthetic import tiny_problem
+    from repro_torch.examples.personalize import main as personalize_main
     from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
     from repro_torch.models import build_model
+    from repro_torch.serve import Predictor, SnapshotStore
+    pop = Population(PopulationSpec("p", m=50, d=4, n_min=4, n_max=8), 0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        if entry == "federation":
+        if entry == "serve_session":
+            Experiment(problem=Problem(population=pop),
+                       exec=Exec(cohort=8)).serve()
+        elif entry == "predictor":
+            Predictor(SnapshotStore())
+        elif entry == "personalize":
+            personalize_main(["--tasks", "2", "--per-task", "4"])
+        elif entry == "train":
+            train_main(["--arch", "smollm-360m", "--local", "--steps", "1"])
+        elif entry == "federation":
             tiny_problem()
         elif entry == "experiment":
             train = tiny_problem(device="cpu")[0]
@@ -79,10 +99,12 @@ def test_default_device_is_the_card(entry):
 
 
 def test_unported_paths_name_their_roadmap_item():
-    """What stays unported (the sharded engine, serving) names its ROADMAP
-    item; the cohort path's fields (item 11) and telemetry (item 12's obs
-    half) now route and run, as in the JAX package: on a silo problem the
-    population-only fields are ignored and the resilience fields raise."""
+    """What stays unported (the sharded engine) names its ROADMAP item; the
+    cohort path's fields (item 11), telemetry and serving (item 12) now
+    route and run, as in the JAX package: on a silo problem the
+    population-only fields are ignored, the resilience fields raise, and
+    ``serve()`` raises the JAX package's ``ValueError``; on a population
+    ``serve()`` routes to the cohort path and runs."""
     from repro_torch.api import Eval, Exec, Experiment, Problem, Systems
     from repro_torch.cohort import FaultConfig, Population, PopulationSpec
     from repro_torch.data.synthetic import tiny_problem
@@ -91,9 +113,10 @@ def test_unported_paths_name_their_roadmap_item():
                                                   "13"):
         Experiment(problem=Problem(train=train),
                    exec=Exec(engine="sharded", device="cpu")).run(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item "
-                                                  "12"):
-        Experiment(problem=Problem(train=train)).serve()
+    with pytest.raises(ValueError, match="needs a population-scale "
+                                         "problem"):
+        Experiment(problem=Problem(train=train),
+                   exec=Exec(device="cpu")).serve()
     for kw in (dict(exec=Exec(telemetry=True, device="cpu")),
                dict(exec=Exec(cohort=8, device="cpu")),
                dict(systems=Systems(dropout=0.1)),
@@ -117,6 +140,13 @@ def test_unported_paths_name_their_roadmap_item():
                      eval=Eval(holdout_clients=8)).run(0)
     assert rep.provenance["path"] == "cohort"
     assert rep.evaluation.summary["holdout_clients"] == 8.0
+    sess = Experiment(problem=Problem(population=pop),
+                      systems=Systems(dropout=0.1),
+                      exec=Exec(cohort=8, device="cpu"),
+                      eval=Eval(holdout_clients=8)).serve(0)
+    served = sess.run()
+    assert served.history == rep.result.history
+    assert sess.report().provenance["path"] == "cohort"
 
 
 @pytest.mark.parametrize("arch", ["musicgen-medium", "llava-next-mistral-7b",
