@@ -61,7 +61,19 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    serving on equal to ``Experiment.run`` bit for bit, every answer equal
    to the host rule of its snapshot, max version lag <= 1, 8 publishes +
    the prewarm, one SDCA launch a kernel-engine block, one capture a
-   local-engine run; predict p50 / p99 and lookups/s;
+   local-engine run; predict p50 / p99 and lookups/s; then the sharded
+   runtime (``phase_sharded_path``, ``Exec(engine="sharded")``, loop
+   driver; no kernel): (a) one NCCL rank at Vehicle Sensor and Human
+   Activity, alpha, v, W, Omega and history equal to the local engine's
+   bit for bit, walls per round beside the local engine's; (b) the bf16
+   wire at Vehicle Sensor against the same run on the CPU (dual and
+   primal rtol 1e-5 / atol 1e-4, the gap within its terms' sum), and its
+   distance from the f32 wire; (c) the cohort path at cohort_ref's shape
+   with the sharded inner engine, equal to the local engine bit for bit;
+   (d) two gloo ranks sharing the card (spawned ``chip_smoke.py
+   --sharded-rank``), equal to each other bit for bit and to the local
+   engine within the run contract; every ``torch.distributed`` collective
+   counted, with its shape and bytes, a round;
 7. the LM main path: SmolLM-360M at full width (random weights from seed
    0) through ``repro_torch.serve.Engine.generate``, batch 8, prompt 1024,
    32 new tokens, in f32 and bf16, through the kernels (counters set to 0
@@ -1073,6 +1085,342 @@ def phase_cohort_profile():
               f"{row['telemetry_wall_s']:.3f} s): " + ", ".join(
                   f"{k} x{n} {ms:.2f} ms" for k, (n, ms) in spans.items())
               + f" [{card_line()}]", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The sharded runtime: tasks over the ranks of a process group
+# ---------------------------------------------------------------------------
+
+#: gloo ranks that share the one card in phase_sharded_path (d)
+SHARD_RANKS = 2
+#: the spawned ranks' wall limit, s: a rank that dies leaves the other in
+#: a collective until the group's timeout; the phase fails before that
+SHARD_TIMEOUT_S = 240
+def wire_per_round(label, calls, rounds):
+    """The collectives of one round, the same in every round: each
+    gather's shape, dtype and bytes (its output, what every rank holds
+    after it)."""
+    per = len(calls) // rounds
+    if per * rounds != len(calls) or calls != calls[:per] * rounds:
+        raise AssertionError(f"{label}: {len(calls)} collectives in "
+                             f"{rounds} rounds, not one pattern a round")
+    if not all(c.name.startswith("all_gather") for c in calls[:per]):
+        raise AssertionError(f"{label}: a round called "
+                             f"{[c.name for c in calls[:per]]}")
+    gathers = [dict(shape=list(c.shape),
+                    dtype=str(c.dtype).removeprefix("torch."),
+                    bytes=int(np.prod(c.shape)) * c.dtype.itemsize)
+               for c in calls[:per]]
+    return dict(collectives_per_round=per, gathers=gathers,
+                bytes_per_round=sum(g["bytes"] for g in gathers))
+
+
+def _sharded_exp(spec, reg, every, engine, device="cuda"):
+    from repro_torch.api import Eval, Exec, Experiment, Method, Problem
+    from repro_torch.data.synthetic import make_federation
+    train, _ = make_federation(spec, seed=0, device=device)
+    return Experiment(
+        problem=Problem(train=train),
+        method=Method(loss="hinge", regularizers=(reg,), rounds=ROUNDS,
+                      omega_update_every=every),
+        exec=Exec(engine=engine, driver="loop", device=device),
+        eval=Eval(record_every=1))
+
+
+def _same_run_bits(label, a, b):
+    same = (a.history == b.history and np.array_equal(a.result.W, b.result.W)
+            and np.array_equal(a.result.omega, b.result.omega)
+            and all(x.device == y.device and torch.equal(x, y)
+                    for x, y in zip(a.result.state, b.result.state)))
+    if not same:
+        raise AssertionError(f"{label}: the sharded run's bits differ from "
+                             "the local engine's")
+
+
+def _hold_run(label, got, want):
+    """A run against the same run elsewhere (the run contract): the clock
+    equal, dual and primal within OBJ_TOL.  The gap is their sum (each
+    ~10^4 at full size, the gap ~10^2), so it is reported, not held.
+    Returns the max |diff| of each."""
+    if got["time"] != want["time"]:
+        raise AssertionError(f"{label}: the clock differs")
+    err = {k: _close(f"{label} {k}", got[k], want[k], OBJ_TOL)
+           for k in ("dual", "primal")}
+    err["gap"] = float(np.max(np.abs(np.asarray(got["gap"])
+                                     - np.asarray(want["gap"]))))
+    return err
+
+
+@contextlib.contextmanager
+def recorded_rounds():
+    """Each sharded round's solve output u (this rank's Delta v block
+    before the wire), and v before and after the round, copied where they
+    lie."""
+    import inspect
+    from repro_torch.federated import runtime
+    rounds, solve, round_ = [], runtime.batched_local_sdca, \
+        runtime.distributed_round
+    sig = inspect.signature(round_)
+
+    def solve_rec(*args, **kwargs):
+        dalpha, u = solve(*args, **kwargs)
+        rounds[-1]["u"] = u.clone()
+        return dalpha, u
+
+    def round_rec(*args, **kwargs):
+        a = sig.bind(*args, **kwargs).arguments
+        rounds.append(dict(v=a["v"].clone(), gamma=a["gamma"]))
+        alpha, v = round_(*args, **kwargs)
+        rounds[-1]["v_out"] = v.clone()
+        return alpha, v
+
+    runtime.batched_local_sdca, runtime.distributed_round = (solve_rec,
+                                                             round_rec)
+    try:
+        yield rounds
+    finally:
+        runtime.batched_local_sdca, runtime.distributed_round = (solve,
+                                                                 round_)
+
+
+def check_wire(label, rounds, wire):
+    """Every round's wire held bit for bit on one rank: v after the round
+    is v + gamma * (the CPU's ``wire`` image of the card's u), in v's
+    dtype.  The two faults the check is there for, the cast skipped and v
+    accumulated in the wire's dtype, are planted on the same inputs; each
+    must miss it in some round (the second cannot show while v is 0).
+    Returns, per planted fault, the rounds in which it was caught."""
+    caught = {"cast skipped": 0, "v in the wire's dtype": 0}
+    for i, r in enumerate(rounds):
+        v, u, v_out, gamma = r["v"], r["u"], r["v_out"], r["gamma"]
+        if u.shape != v.shape:
+            raise AssertionError(f"{label}: one rank's block {u.shape}")
+        image = u.cpu().to(wire).to(v.device)
+        want = v + gamma * image.to(v.dtype)
+        if v_out.dtype != v.dtype or not torch.equal(v_out, want):
+            raise AssertionError(
+                f"{label} round {i}: v is not v + gamma * the {wire} image "
+                f"of u ({v_out.dtype}, max |diff| "
+                f"{(v_out.float() - want).abs().max().item():.3e})")
+        planted = {"cast skipped": v + gamma * u,
+                   "v in the wire's dtype": (v.to(wire) + gamma * image
+                                             ).to(v.dtype)}
+        for fault, x in planted.items():
+            caught[fault] += not torch.equal(x, want)
+    if not rounds or min(caught.values()) == 0:
+        raise AssertionError(f"{label}: the planted faults pass the check "
+                             f"in {len(rounds)} rounds: caught {caught}")
+    return caught
+
+
+def sharded_rank(rank, store, out):
+    """One of SHARD_RANKS gloo ranks on the one card (phase (d), spawned
+    by ``chip_smoke.py --sharded-rank``): the Vehicle Sensor run on the
+    sharded engine, its results written to ``out``."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    from repro_torch.core import Clustered
+    from repro_torch.data.synthetic import VEHICLE_SENSOR
+    from repro_torch.utils.dist import counted_collectives
+    rank = int(rank)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, SHARD_RANKS),
+                            rank=rank, world_size=SHARD_RANKS,
+                            timeout=timedelta(seconds=SHARD_TIMEOUT_S // 2))
+    exp = _sharded_exp(VEHICLE_SENSOR, Clustered(lam=1.0, k=3), 5, "sharded")
+    with counted_collectives() as calls:
+        rep, wall = _run_timed(exp)
+    wire = wire_per_round("gloo ranks", calls, ROUNDS)
+    np.savez(f"{out}.{rank}.npz", W=rep.result.W,
+             alpha=rep.result.state.alpha.cpu().numpy(),
+             v=rep.result.state.v.cpu().numpy(),
+             devices=np.array([str(t.device) for t in rep.result.state]),
+             wall_s=wall, wire=json.dumps(wire),
+             **{f"h_{k}": np.asarray(v) for k, v in rep.history.items()})
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_ranks_on_the_card(local_vs):
+    """(d) SHARD_RANKS gloo ranks on the one card (the installed gloo
+    takes CUDA tensors in its all-gather): every rank's bits equal, the
+    result the local engine's within the run contract."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tdir:
+        logs = [open(f"{tdir}/log.{r}", "w+") for r in range(SHARD_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--sharded-rank",
+             str(r), f"{tdir}/store", f"{tdir}/out"],
+            stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(SHARD_RANKS)]
+        deadline = time.monotonic() + SHARD_TIMEOUT_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for r, p in enumerate(procs):
+            logs[r].seek(0)
+            log = logs[r].read()
+            logs[r].close()
+            if p.returncode != 0:
+                raise AssertionError(f"gloo rank {r} exited "
+                                     f"{p.returncode}: {log[-3000:]}")
+        ranks = [dict(np.load(f"{tdir}/out.{r}.npz"))
+                 for r in range(SHARD_RANKS)]
+    for r in ranks[1:]:
+        for k, v in ranks[0].items():
+            if k != "wall_s" and not np.array_equal(r[k], v):
+                raise AssertionError(f"gloo ranks: {k} differs by rank")
+    got = ranks[0]
+    if set(got["devices"]) != {"cuda:0"}:
+        raise AssertionError(f"gloo ranks' state on {set(got['devices'])}")
+    err = max(_hold_run("gloo ranks vs local", {
+        k: got[f"h_{k}"].tolist() for k in ("dual", "primal", "gap", "time")},
+        local_vs.history).values())
+    werr = _close("gloo ranks vs local W", got["W"], local_vs.result.W,
+                  W_TOL, max(1.0, float(np.abs(local_vs.result.W).max())))
+    wall = [1e3 * float(r["wall_s"]) / ROUNDS for r in ranks]
+    return dict(ranks=SHARD_RANKS, wall_ms_per_round=wall,
+                history_err=err, W_err=werr, **json.loads(str(got["wire"])))
+
+
+def phase_sharded_path():
+    """The sharded runtime on the card (``Exec(engine="sharded")``, loop
+    driver): (a) one NCCL rank at Vehicle Sensor and Human Activity, equal
+    to the local engine bit for bit; (b) the bf16 wire at Vehicle Sensor,
+    each round's wire bit for bit against the CPU's cast and the run
+    against the same run on the CPU; (c) the cohort path with the sharded
+    inner engine at cohort_ref's shape, equal to the local engine bit for
+    bit; (d) two gloo ranks on the one card.  Collectives counted, the
+    walls per round beside the local engine's."""
+    import torch.distributed as dist
+    from repro_torch.api import Exec, Experiment, Method, Problem, Systems
+    from repro_torch.cohort import Population, PopulationSpec
+    from repro_torch.core import (BudgetConfig, Clustered, MeanRegularized,
+                                  Probabilistic, ShardedEngine)
+    from repro_torch.data.synthetic import (HUMAN_ACTIVITY, VEHICLE_SENSOR,
+                                            tiny_problem)
+    from repro_torch.utils.dist import counted_collectives
+    out = {"ranks": 1}
+    # the first collective of the process creates the NCCL communicator
+    t0 = time.perf_counter()
+    Experiment(problem=Problem(train=tiny_problem(m=4, device="cuda")[0]),
+               method=Method(rounds=1), exec=Exec(engine="sharded")).run(0)
+    torch.cuda.synchronize()
+    out["nccl_init_s"] = time.perf_counter() - t0
+    backend = dist.get_backend_config()
+    if "cuda:nccl" not in backend:
+        raise AssertionError(f"the one-rank group's backends: {backend}")
+    local = {}
+    cases = [("vehicle_sensor", VEHICLE_SENSOR, Clustered(lam=1.0, k=3), 5),
+             ("human_activity", HUMAN_ACTIVITY, MeanRegularized(), 0)]
+    for label, spec, reg, every in cases:
+        # sharded, local, sharded: both timed runs come after a warm one
+        first = _sharded_exp(spec, reg, every, "sharded").run(seed=0)
+        rep_l, wall_l = _run_timed(_sharded_exp(spec, reg, every, "local"))
+        with counted_collectives() as calls:
+            rep_s, wall_s = _run_timed(_sharded_exp(spec, reg, every,
+                                                    "sharded"))
+        _same_run_bits(f"sharded [{label}]", first, rep_l)
+        _same_run_bits(f"sharded [{label}]", rep_s, rep_l)
+        wire = wire_per_round(label, calls, ROUNDS)
+        local[label] = rep_l
+        out[label] = dict(m=spec.m, d=spec.d, wall_ms_per_round=[
+            1e3 * wall_s / ROUNDS, 1e3 * wall_l / ROUNDS], **wire)
+        print(f"sharded (a) [{label}] one NCCL rank, m={spec.m} d={spec.d}, "
+              f"{ROUNDS} rounds: alpha, v, W, Omega and history equal to the "
+              f"local engine bit for bit; {wire['collectives_per_round']} "
+              f"gathers a round " + ", ".join(
+                  f"{g['shape']} {g['dtype']} {g['bytes']} B"
+                  for g in wire["gathers"])
+              + f"; wall/round (loop driver) sharded "
+              f"{1e3 * wall_s / ROUNDS:.2f} ms local "
+              f"{1e3 * wall_l / ROUNDS:.2f} ms", flush=True)
+        if label == "vehicle_sensor":
+            f32 = rep_s
+    # (b) the bf16 wire, on the card and on the CPU; the f32 wire beside it
+    vs = cases[0]
+    with counted_collectives() as calls, recorded_rounds() as rounds:
+        card, wall_b = _run_timed(_sharded_exp(
+            *vs[1:], ShardedEngine(comm_dtype=torch.bfloat16)))
+    caught = check_wire("bf16 wire", rounds, torch.bfloat16)
+    if len(rounds) != ROUNDS or rounds[0]["u"].device.type != "cuda":
+        raise AssertionError(f"bf16 wire: {len(rounds)} rounds held on "
+                             f"{rounds[0]['u'].device}")
+    cpu = _sharded_exp(*vs[1:], ShardedEngine(comm_dtype=torch.bfloat16),
+                       device="cpu").run(seed=0)
+    cpu32 = _sharded_exp(*vs[1:], "sharded", device="cpu").run(seed=0)
+    err = {"bf16": _hold_run("bf16 wire card vs cpu", card.history,
+                             cpu.history),
+           "f32": _hold_run("f32 wire card vs cpu", f32.history,
+                            cpu32.history)}
+    off = {k: abs(card.final(k) - f32.final(k)) / abs(f32.final("primal"))
+           for k in ("gap", "primal")}
+    wire = wire_per_round("bf16 wire", calls, ROUNDS)
+    out["bf16_wire"] = dict(wall_ms_per_round=1e3 * wall_b / ROUNDS,
+                            rounds_held_bitwise=ROUNDS,
+                            planted_faults_caught=caught,
+                            card_vs_cpu_err=err, vs_f32_rel=off,
+                            final_gap=[card.final("gap"), f32.final("gap")],
+                            **wire)
+    print(f"sharded (b) [vehicle_sensor] bf16 wire: each of {ROUNDS} "
+          f"rounds' v equal to v + gamma * the CPU's bf16 image of the "
+          f"card's u, bit for bit; planted on the same inputs, caught in "
+          + ", ".join(f"{n}/{ROUNDS} rounds: {f}" for f, n in caught.items())
+          + "; card vs cpu max |diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err["bf16"].items())
+          + " (f32 wire: " + ", ".join(f"{k} {v:.3e}"
+                                       for k, v in err["f32"].items())
+          + f"); final gap bf16 {card.final('gap'):.6g} f32 "
+          f"{f32.final('gap'):.6g}, |bf16 - f32| / |primal|: gap "
+          f"{off['gap']:.3e} primal {off['primal']:.3e}; gathers "
+          + ", ".join(f"{g['shape']} {g['dtype']} {g['bytes']} B"
+                      for g in wire["gathers"])
+          + f"; wall/round {1e3 * wall_b / ROUNDS:.2f} ms", flush=True)
+    # (c) the cohort path, its K-task cohort sharded
+    pop = Population(PopulationSpec(**REF_SPEC), seed=0)
+    cohort = {}
+    for engine in ("local", "sharded"):
+        exp = Experiment(
+            problem=Problem(population=pop),
+            method=Method(regularizers=(Probabilistic(lam=1e-2,
+                                                      sigma2=10.0),),
+                          rounds=6, omega_update_every=2,
+                          budget=BudgetConfig(passes=1.0)),
+            systems=Systems(dropout=0.2),
+            exec=Exec(engine=engine, cohort=12, clusters=3))
+        with counted_collectives() as calls:
+            cohort[engine] = _run_timed(exp) + (list(calls),)
+    (rep_l, wall_l, _), (rep_s, wall_s, calls) = (cohort["local"],
+                                                   cohort["sharded"])
+    if rep_s.provenance["path"] != "cohort" or \
+            rep_s.provenance["engine"] != "sharded":
+        raise AssertionError(f"cohort: routed {rep_s.provenance['path']}")
+    _same_cohort_bits("sharded cohort", rep_s.result, rep_l.result)
+    wire = wire_per_round("cohort", calls, 6)
+    out["cohort_ref"] = dict(blocks=6, wall_s=[wall_s, wall_l], **wire)
+    print(f"sharded (c) [cohort_ref m={REF_SPEC['m']} K=12, 6 blocks] inner "
+          f"engine sharded: history, centroids, Omega, assignments equal to "
+          f"the local engine's bit for bit; {len(calls)} gathers "
+          f"({wire['bytes_per_round']} B a block); wall sharded "
+          f"{wall_s:.3f} s local (pre-sampled) {wall_l:.3f} s", flush=True)
+    dist.destroy_process_group()
+    # (d) two gloo ranks on the one card
+    out["gloo_ranks"] = sharded_ranks_on_the_card(local["vehicle_sensor"])
+    g = out["gloo_ranks"]
+    print(f"sharded (d) [vehicle_sensor] {SHARD_RANKS} gloo ranks on the one "
+          f"card (m 23 padded to 24): ranks equal bit for bit, history vs "
+          f"local max |diff| {g['history_err']:.3e}, W {g['W_err']:.3e}; "
+          f"gathers " + ", ".join(f"{x['shape']} {x['dtype']} {x['bytes']} B"
+                                  for x in g["gathers"])
+          + "; wall/round " + ", ".join(f"{w:.2f}" for w in
+                                        g["wall_ms_per_round"])
+          + f" ms [{card_line()}]", flush=True)
     return out
 
 
@@ -2435,6 +2783,7 @@ def main() -> int:
                      + eval_path["grids"]["global_launches"])
     cohort = phase_cohort_path()
     serve_tier = phase_serve_tier()
+    sharded = phase_sharded_path()
     phase_small_reference()
     lm = phase_lm_main_path()
     phase_lm_small_reference()
@@ -2494,6 +2843,7 @@ def main() -> int:
     print(json.dumps({"eval_path": eval_path}))
     print(json.dumps({"cohort_path": cohort}))
     print(json.dumps({"serve_tier": serve_tier}))
+    print(json.dumps({"sharded_path": sharded}))
     print(json.dumps({"personalize": pers}))
     print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
@@ -2505,4 +2855,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank(*sys.argv[2:5]))
     sys.exit(main())

@@ -30,6 +30,7 @@ from repro_torch.core.mocha import _run_mocha
 from repro_torch.core.subproblem import active_gram_max_d
 from repro_torch.core.sweep import SweepResult, _run_sweep
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.dist import writes_files
 
 _LOG = logging.getLogger("repro_torch.api")
 
@@ -104,7 +105,8 @@ def _finalize_telemetry(exp: Experiment, tel: obs.Telemetry, seed: Seed,
                         report: Report) -> None:
     """Merge the flat metrics summary (and the trace's path) into the
     provenance block.  The trace's file name is a pure function of (config
-    hash, seed), so a rerun overwrites it."""
+    hash, seed), so a rerun overwrites it; under a process group rank 0
+    alone writes it."""
     if not tel.enabled:
         return
     prov = report.provenance
@@ -112,8 +114,9 @@ def _finalize_telemetry(exp: Experiment, tel: obs.Telemetry, seed: Seed,
     if exp.exec.trace_dir is not None:
         stem = (f"trace_{prov.get('config_hash') or 'run'}"
                 f"_s{_seed_tag(seed)}.json")
-        prov["trace_path"] = obs.write_trace(
-            os.path.join(exp.exec.trace_dir, stem), tel)
+        path = os.path.join(exp.exec.trace_dir, stem)
+        prov["trace_path"] = (obs.write_trace(path, tel) if writes_files()
+                              else path)
 
 
 def run_experiment(exp: Experiment, seed: Seed = 0) -> Report:

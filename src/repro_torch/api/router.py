@@ -13,30 +13,22 @@ The JAX package's paths, all four in the port:
 
 The routing table is the JAX package's (``tests/test_torch_sweep.py``
 mirrors its golden table), and so are its errors for fields that only the
-cohort loop owns.  An experiment that sets a field only the sharded
-engine reads raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+cohort loop owns.  Every engine runs on all four paths where the JAX
+package runs it: the sharded engine on ``single``, on ``grid`` (it has no
+batched path) and as the cohort's inner engine.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-from repro_torch.api.specs import Exec, Experiment
+from repro_torch.api.specs import Experiment
 
 #: every route the router can choose
 PATHS = ("single", "sweep", "grid", "cohort")
 
 #: inner drivers a path can run on
 INNER_DRIVERS = ("scan", "loop", "vmap")
-
-_SHARDED = "ROADMAP.md Queue 1 item 13 (sharded runtime)"
-
-#: (spec, field) -> the ROADMAP item whose path reads it
-_LATER_FIELDS = {
-    (Exec, "mesh"): _SHARDED,
-    (Exec, "comm_dtype"): _SHARDED,
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,10 +39,6 @@ class RoutePlan:
     driver: str                    # scan | loop | vmap (inner execution)
     engine: str                    # resolved engine name
     reason: Optional[str] = None   # why a batched path was not taken
-
-
-def _not_yet(what: str, item: str):
-    return NotImplementedError(f"{what} is not in the port yet ({item})")
 
 
 def batch_incompatibility(exp: Experiment, engine) -> Optional[str]:
@@ -71,11 +59,6 @@ def batch_incompatibility(exp: Experiment, engine) -> Optional[str]:
 
 def route(exp: Experiment) -> RoutePlan:
     """Inspect the experiment and choose its execution path."""
-    specs = {Exec: exp.exec}
-    for (cls, name), item in _LATER_FIELDS.items():
-        default = cls.__dataclass_fields__[name].default
-        if getattr(specs[cls], name) != default:
-            raise _not_yet(f"{cls.__name__}.{name}", item)
     engine = exp.exec.resolve_engine()
     if exp.exec.driver == "scan" and not engine.supports_scan:
         raise ValueError(

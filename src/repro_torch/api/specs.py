@@ -17,8 +17,7 @@
 ``Experiment.serve(seed, Serve(...))`` (``execute.serve_experiment``)
 attaches the online prediction tier to a population's cohort run.
 ``as_mocha_config`` / ``as_cohort_config`` build the drivers' configs from
-the specs.  The sharded engine's fields (``Exec.mesh``/``comm_dtype``)
-raise ``NotImplementedError`` naming their ROADMAP item.
+the specs.  ``Exec.mesh``/``comm_dtype`` configure the sharded engine.
 """
 from __future__ import annotations
 
@@ -28,6 +27,7 @@ import json
 from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch.cohort.resilience import FaultConfig
 from repro_torch.core.dual import DualState, FederatedData
@@ -154,13 +154,16 @@ class Exec:
     """How the experiment executes.
 
     ``engine`` is ``"local"`` (plain PyTorch solver, every loss),
-    ``"kernel"`` (the Hopper SDCA kernel, hinge) or an engine instance;
+    ``"kernel"`` (the Hopper SDCA kernel, hinge), ``"sharded"`` (tasks
+    sharded over the ranks of a process group) or an engine instance;
     ``state0`` warm-starts the dual iterate; ``cohort`` ... ``resume`` are
     the cohort block loop's (population problems); ``telemetry`` records
     spans and metrics and ``trace_dir`` writes their Chrome trace (every
     path).  The fields are the JAX package's, in its order, then
     ``device``: where the run executes (``"cuda"`` unless the caller asks
-    for ``"cpu"``).  ``mesh``/``comm_dtype`` belong to the sharded engine.
+    for ``"cpu"``).  ``mesh`` (a 1-D ``DeviceMesh``) and ``comm_dtype`` (the
+    Delta v wire's dtype: a ``torch.dtype`` or its name, ``"bfloat16"``)
+    configure the sharded engine.
     """
 
     engine: Any = "local"
@@ -205,7 +208,11 @@ class Exec:
                 "checkpoint_every/resume need Exec.checkpoint_dir")
 
     def resolve_engine(self):
-        from repro_torch.core.engine import get_engine
+        """Instantiate the engine (mesh/comm_dtype configure 'sharded')."""
+        from repro_torch.core.engine import ShardedEngine, get_engine
+        if (self.engine == "sharded"
+                and (self.mesh is not None or self.comm_dtype is not None)):
+            return ShardedEngine(mesh=self.mesh, comm_dtype=self.comm_dtype)
         return get_engine(self.engine)
 
     @property
@@ -373,6 +380,8 @@ def _canon(x) -> Any:
         return ["array", [int(s) for s in x.shape], str(x.dtype)]
     if isinstance(x, np.dtype) or isinstance(x, type):
         return str(getattr(x, "__name__", x))
+    if isinstance(x, torch.dtype):                        # the wire dtype
+        return str(x).removeprefix("torch.")
     if callable(x):
         return getattr(x, "__qualname__", type(x).__name__)
     return type(x).__name__

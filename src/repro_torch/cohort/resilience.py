@@ -59,6 +59,7 @@ import numpy as np
 
 from repro_torch import obs
 from repro_torch.train import checkpoint as _ckpt
+from repro_torch.utils.dist import writes_files
 from repro_torch.utils.timing import tick
 
 #: domain-separation tag for the fault plan's SeedSequence entropy
@@ -393,13 +394,18 @@ class CohortCheckpointer:
     # -- save / restore -----------------------------------------------------
 
     def save(self, loop: Any, block: int) -> str:
-        """Atomic snapshot of the frontier state after folding ``block``."""
+        """Atomic snapshot of the frontier state after folding ``block``.
+        Under a process group only rank 0 writes it (every rank holds the
+        same state, and records the same span and metrics); the others
+        return its path.  A resume on another rank's host needs the
+        directory on a shared file system."""
         with self._tel.span("checkpoint", block=block) as sp:
             t0 = tick()
-            path = _ckpt.save(self.directory, block,
-                              self._snapshot(loop, block))
+            data = _ckpt.encode(block, self._snapshot(loop, block))
+            path = (_ckpt.write(self.directory, block, data) if writes_files()
+                    else _ckpt.step_path(self.directory, block))
             save_s = tick() - t0
-            size = os.path.getsize(path)
+            size = len(data)
             sp.set(bytes=size)
             self._tel.counter("checkpoint_saves").inc()
             self._tel.counter("checkpoint_bytes").inc(size)

@@ -4,7 +4,7 @@ from repro_torch.core.dual import (DualState, FederatedData, compute_v,
                                    per_task_error, primal_objective,
                                    primal_weights, r_star, with_xnorm2)
 from repro_torch.core.engine import (ENGINES, KernelEngine, LocalEngine,
-                                     RoundEngine, get_engine)
+                                     RoundEngine, ShardedEngine, get_engine)
 from repro_torch.core.evaluate import (METRICS, EvalReport,
                                        evaluate_cohort, evaluate_grid,
                                        evaluate_run, holdout_client_ids)

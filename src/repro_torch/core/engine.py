@@ -8,7 +8,11 @@ an engine maps that round onto an execution substrate:
                         (``subproblem.batched_local_sdca``), every loss;
   * ``KernelEngine`` -- the Hopper SDCA kernel (``repro_torch.kernels.sdca``),
                         hinge loss only; the counterpart of the JAX
-                        package's ``PallasEngine``.
+                        package's ``PallasEngine``;
+  * ``ShardedEngine`` -- the sharded runtime (``repro_torch.federated``):
+                        tasks sharded over the ranks of a process group,
+                        Delta v exchanged with one all-gather a round (the
+                        paper's only communication).
 
 Contract: ``setup(data, loss, max_steps, gram=None)`` returns the initial
 ``DualState``; ``round(state, K, q_t, budgets, gamma, key)`` returns the
@@ -18,8 +22,9 @@ same coordinate streams from the same key.
 
 An engine with ``supports_scan`` also hands the pre-sampled driver a pure
 round function (``scan_round_fn``) that reads nothing back to the host, so
-that a CUDA graph can capture it.  The kernel engine keeps the loop driver,
-as the JAX package's ``PallasEngine`` does.
+that a CUDA graph can capture it.  The kernel and sharded engines keep the
+loop driver, as the JAX package's ``PallasEngine`` and ``ShardedEngine``
+do.
 """
 from __future__ import annotations
 
@@ -139,11 +144,73 @@ class KernelEngine(RoundEngine):
         return _apply(state, gamma, dalpha, u)
 
 
-ENGINES = {"local": LocalEngine, "kernel": KernelEngine}
+class ShardedEngine(RoundEngine):
+    """The sharded runtime: tasks sharded over the mesh's ``data`` axis.
 
-#: engines of the JAX package that the port does not have yet
-_LATER = {"sharded": "ROADMAP.md Queue 1 item 13 (sharded runtime)",
-          "pallas": "its counterpart here is engine='kernel'"}
+    Data, alpha, budgets and keys are read block by block, v is replicated,
+    and the round's Delta v exchange is one all-gather.  The task axis is
+    padded to a multiple of the rank count with empty tasks (mask 0,
+    budget 0), which receive exactly zero updates; the driver only sees
+    real-size state, so the engine gathers the alpha blocks back for it (a
+    second all-gather, of alpha's f32 rows).  ``mesh`` defaults to every
+    rank of the process group (``make_federated_mesh``); ``comm_dtype``
+    optionally narrows the wire (``torch.bfloat16`` or ``"bfloat16"``)."""
+
+    name = "sharded"
+
+    def __init__(self, mesh=None, comm_dtype=None):
+        from repro_torch.federated.runtime import wire_dtype
+        self._mesh_arg = mesh
+        self.comm_dtype = wire_dtype(comm_dtype)
+
+    def setup(self, data, loss, max_steps, gram=None):
+        from repro_torch.federated import runtime, sharding
+        self.mesh = (runtime.make_federated_mesh(device=data.device)
+                     if self._mesh_arg is None
+                     else runtime.check_mesh(self._mesh_arg, data.device))
+        self.loss, self.max_steps, self.gram = loss, max_steps, gram
+        self.data_p, _ = sharding.pad_tasks(data, self.mesh.size())
+        self.m_real, self.m_pad = data.m, self.data_p.m
+        self._K_src = self._q_src = None
+        return dual_mod.init_state(data)
+
+    def _padded_coupling(self, K: Tensor, q_t: Tensor):
+        # K and q_t change only on an Omega refresh: cache the O(m^2) pad
+        # by identity instead of padding again every round
+        from repro_torch.federated import sharding
+        if self._K_src is not K:
+            self._K_src = K
+            self._K_p = sharding.pad_task_matrix(K, self.m_pad)
+        if self._q_src is not q_t:
+            self._q_src = q_t
+            self._q_p = sharding.pad_vector(q_t, self.m_pad, fill=1.0)
+        return self._K_p, self._q_p
+
+    def _pad_keys(self, key: Tensor) -> Tensor:
+        # split for the REAL tasks (the other engines' keys), pad with
+        # zeros: padded tasks have budget 0 and mask 0, so never draw
+        from repro_torch.federated import sharding
+        return sharding.pad_vector(prng.split(key, self.m_real), self.m_pad)
+
+    def round(self, state, K, q_t, budgets, gamma, key):
+        from repro_torch.federated import runtime, sharding
+        m_pad = self.m_pad
+        K_p, q_p = self._padded_coupling(K, q_t)
+        alpha_sh, v = runtime.distributed_round(
+            self.mesh, self.loss, self.max_steps, self.data_p,
+            sharding.pad_vector(state.alpha, m_pad),
+            sharding.pad_vector(state.v, m_pad), K_p, q_p,
+            sharding.pad_vector(budgets.to(torch.int32), m_pad), gamma,
+            self._pad_keys(key), comm_dtype=self.comm_dtype, gram=self.gram)
+        alpha = runtime.all_gather_rows(self.mesh, alpha_sh)
+        return DualState(alpha=alpha[:self.m_real], v=v[:self.m_real])
+
+
+ENGINES = {"local": LocalEngine, "kernel": KernelEngine,
+           "sharded": ShardedEngine}
+
+#: engines of the JAX package that the port names otherwise
+_LATER = {"pallas": "its counterpart here is engine='kernel'"}
 
 
 def get_engine(spec=None) -> RoundEngine:

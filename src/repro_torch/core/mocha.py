@@ -73,7 +73,7 @@ class MochaConfig:
     gamma: float = 1.0                 # aggregation parameter (Remark 3)
     per_task_sigma: bool = True        # Remark 5 per-task sigma'_t
     budget: BudgetConfig = dataclasses.field(default_factory=BudgetConfig)
-    engine: str = "local"              # round executor: local | kernel
+    engine: str = "local"              # local | kernel | sharded
     network: str = "lte"
     systems: Optional[SystemsConfig] = None  # full systems model
     seed: int = 0

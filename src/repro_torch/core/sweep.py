@@ -22,6 +22,11 @@ matrix serves every cell, folded into the pre-sampled budgets exactly as
 the single run folds its own.  The sweep measures statistics, not time: no
 trace is replayed.
 
+Devices: the grid runs whole on one device.  ``_shard_grid`` holds the JAX
+package's rule for spreading its independent cells over several; the port
+does not apply it yet, since each slice would capture and replay the whole
+round's launches from the one host (ROADMAP item 20).
+
 Shuffles with different ``n_max`` are right-padded to a common size by
 ``stack_federations``.  A padded cell solves the same problem as the
 unpadded single run from the same draws: a coordinate draw does not depend
@@ -118,6 +123,27 @@ def grid_batch_reason(regs: Sequence[Regularizer]) -> Optional[str]:
                 return (f"grid field {f.name!r} is not numeric and cannot "
                         "become a traced scalar")
     return None
+
+
+def _shard_grid(n_regs: int, n_shuffles: int,
+                n_devices: int) -> Tuple[Optional[str], int]:
+    """How the grid's cells would spread over ``n_devices``: ``(axis,
+    k)``, the ``"shuffles"`` or ``"regs"`` axis cut in k equal slices, or
+    ``(None, 1)`` (the grid stays whole).
+
+    The JAX package's rule: per axis, the largest k in 2..n_devices that
+    divides it; the axis with the larger k wins, ties go to the shuffles.
+    """
+    if n_devices <= 1:
+        return None, 1
+    k_shuffle = max((k for k in range(2, n_devices + 1)
+                     if n_shuffles % k == 0), default=1)
+    k_reg = max((k for k in range(2, n_devices + 1) if n_regs % k == 0),
+                default=1)
+    k = max(k_shuffle, k_reg)
+    if k <= 1:
+        return None, 1
+    return ("shuffles" if k_shuffle >= k_reg else "regs"), k
 
 
 def _run_sweep(data: Union[FederatedData, Sequence[FederatedData]],

@@ -56,22 +56,39 @@ def _unflatten(node: Any, leaves: List[Any], pos: List[int]) -> Any:
     return tuple(items) if kind == "tuple" else items
 
 
-def save(path: str, step: int, tree: Any) -> str:
-    """Atomically save a tree.  Returns the checkpoint file path."""
-    os.makedirs(path, exist_ok=True)
+def encode(step: int, tree: Any) -> bytes:
+    """A tree's checkpoint file, as bytes."""
     leaves: List[np.ndarray] = []
     structure = _flatten(tree, leaves)
     manifest = json.dumps({
         "step": int(step), "tree": structure,
         "leaves": [{"dtype": a.dtype.str, "shape": list(a.shape)}
                    for a in leaves]})
-    fname = os.path.join(path, f"step_{step}.ckpt")
+    buf = io.BytesIO()
+    np.savez(buf, **{_MANIFEST: np.frombuffer(manifest.encode(), np.uint8)},
+             **{f"leaf_{i}": a for i, a in enumerate(leaves)})
+    return buf.getvalue()
+
+
+def step_path(path: str, step: int) -> str:
+    """The file of checkpoint ``step`` under ``path``."""
+    return os.path.join(path, f"step_{step}.ckpt")
+
+
+def write(path: str, step: int, data: bytes) -> str:
+    """Atomically write ``encode``'s bytes.  Returns the file path."""
+    os.makedirs(path, exist_ok=True)
+    fname = step_path(path, step)
     tmp = fname + ".tmp"
     with open(tmp, "wb") as f:
-        np.savez(f, **{_MANIFEST: np.frombuffer(manifest.encode(), np.uint8)},
-                 **{f"leaf_{i}": a for i, a in enumerate(leaves)})
+        f.write(data)
     os.replace(tmp, fname)
     return fname
+
+
+def save(path: str, step: int, tree: Any) -> str:
+    """Atomically save a tree.  Returns the checkpoint file path."""
+    return write(path, step, encode(step, tree))
 
 
 def latest_step(path: str) -> Optional[int]:
@@ -96,7 +113,7 @@ def restore(path: str, like: Any, step: Optional[int] = None,
     step = step if step is not None else latest_step(path)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {path}")
-    fname = os.path.join(path, f"step_{step}.ckpt")
+    fname = step_path(path, step)
     with open(fname, "rb") as f:
         archive = np.load(io.BytesIO(f.read()), allow_pickle=False)
     manifest = json.loads(bytes(archive[_MANIFEST]).decode())

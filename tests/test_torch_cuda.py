@@ -818,3 +818,62 @@ def test_train_step_kernel_route_matches_plain_route(dtype):
     for a, b in zip(tree_leaves(kg), tree_leaves(pg)):
         scale = float(b.float().abs().max())
         assert float((a.float() - b.float()).abs().max()) <= grel * scale
+
+
+def _sharded_run(dev, engine, d=40, **cfg_kw):
+    from repro_torch.core import BudgetConfig, MeanRegularized, MochaConfig
+    from repro_torch.core.mocha import _run_mocha
+    from repro_torch.data.synthetic import make_federation
+    train = make_federation(_spec(d=d), seed=2, device=dev)[0]
+    cfg = MochaConfig(rounds=8, record_every=3, seed=3, device=str(dev),
+                      budget=BudgetConfig(passes=1.0, systems_lo=0.5,
+                                          drop_prob=0.3), **cfg_kw)
+    return _run_mocha(train, MeanRegularized(0.5, 0.5), cfg, engine=engine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 200])
+def test_sharded_engine_on_one_nccl_rank_equals_local_bitwise(d):
+    """The one-rank mesh on the card runs its gathers through NCCL and
+    gives the local engine's bits (both on the loop driver)."""
+    import torch.distributed as dist
+    from repro_torch.core import ShardedEngine
+    dev = _card()
+    eng = ShardedEngine()
+    got = _sharded_run(dev, eng, d=d, driver="loop")
+    assert dist.get_backend_config(eng.mesh.get_group()).count("nccl") == 1
+    assert eng.mesh.device_type == "cuda"
+    want = _sharded_run(dev, "local", d=d, driver="loop")
+    assert got.history == want.history
+    for a, b in zip(got.state, want.state):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    np.testing.assert_array_equal(got.W, want.W)
+
+
+@pytest.mark.cuda
+def test_bf16_wire_on_the_card():
+    """The bf16 wire on the card: v after one round is the bf16 image of
+    the f32 wire's; a whole run holds the same run on the CPU within the
+    run contract (objectives rtol 1e-5 / atol 1e-4)."""
+    from repro_torch.core import HINGE, ShardedEngine, with_xnorm2
+    from repro_torch.data.synthetic import make_federation
+    from repro_torch.utils import prng
+    dev = _card()
+    data = with_xnorm2(make_federation(_spec(), seed=2, device=dev)[0])
+    K = torch.eye(data.m, device=dev) * 0.3 + 0.05
+    q_t = torch.full((data.m,), 0.4, device=dev)
+    budgets = torch.round(data.n_t).to(torch.int32)
+    vs = []
+    for wire in (None, torch.bfloat16):
+        eng = ShardedEngine(comm_dtype=wire)
+        st = eng.setup(data, HINGE, data.n_max)
+        vs.append(eng.round(st, K, q_t, budgets, 1.0,
+                            prng.PRNGKey(0, device=dev)).v)
+    assert torch.equal(vs[1], vs[0].to(torch.bfloat16).float())
+    card = _sharded_run(dev, ShardedEngine(comm_dtype="bfloat16"))
+    cpu = _sharded_run(torch.device("cpu"),
+                       ShardedEngine(comm_dtype="bfloat16"))
+    assert card.history["time"] == cpu.history["time"]
+    for k in ("dual", "primal", "gap"):
+        np.testing.assert_allclose(card.history[k], cpu.history[k],
+                                   rtol=1e-5, atol=1e-4, err_msg=k)

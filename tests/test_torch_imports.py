@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,7 +33,8 @@ for sub in ("configs.smollm_360m", "models.layers", "models.transformer",
             "core.personalization", "data.tokens", "train.losses",
             "train.optimizer", "train.loop", "launch.train",
             "examples.personalize", "examples.serve_cohort",
-            "examples.train_lm"):
+            "examples.train_lm", "examples.sharded", "federated",
+            "federated.runtime", "federated.sharding", "utils.dist"):
     assert "repro_torch." + sub in names, sub
 print(len(names))
 """
@@ -99,20 +101,23 @@ def test_default_device_is_the_card(entry):
 
 
 def test_unported_paths_name_their_roadmap_item():
-    """What stays unported (the sharded engine) names its ROADMAP item; the
-    cohort path's fields (item 11), telemetry and serving (item 12) now
-    route and run, as in the JAX package: on a silo problem the
-    population-only fields are ignored, the resilience fields raise, and
-    ``serve()`` raises the JAX package's ``ValueError``; on a population
-    ``serve()`` routes to the cohort path and runs."""
+    """The sharded engine (item 13), the cohort path's fields (item 11),
+    telemetry and serving (item 12) route and run, as in the JAX package:
+    ``engine="sharded"`` with its wire dtype runs the single path on the
+    loop driver; on a silo problem the population-only fields are
+    ignored, the resilience fields raise, and ``serve()`` raises the JAX
+    package's ``ValueError``; on a population ``serve()`` routes to the
+    cohort path and runs."""
     from repro_torch.api import Eval, Exec, Experiment, Problem, Systems
     from repro_torch.cohort import FaultConfig, Population, PopulationSpec
     from repro_torch.data.synthetic import tiny_problem
     train = tiny_problem(device="cpu")[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item "
-                                                  "13"):
-        Experiment(problem=Problem(train=train),
-                   exec=Exec(engine="sharded", device="cpu")).run(0)
+    rep = Experiment(problem=Problem(train=train),
+                     exec=Exec(engine="sharded", comm_dtype="bfloat16",
+                               device="cpu")).run(0)
+    assert (rep.provenance["path"], rep.provenance["driver"],
+            rep.provenance["engine"]) == ("single", "loop", "sharded")
+    assert np.isfinite(rep.result.W).all()
     with pytest.raises(ValueError, match="needs a population-scale "
                                          "problem"):
         Experiment(problem=Problem(train=train),

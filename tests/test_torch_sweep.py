@@ -183,14 +183,29 @@ GOLDEN_ROUTES = [
     ("silo", "local", False, "single", "scan", False),
     ("silo", "local", True, "single", "scan", False),
     ("silo", "kernel", False, "single", "loop", False),
+    ("silo", "sharded", True, "single", "loop", False),
     ("shuffles", "local", False, "sweep", "vmap", False),
     ("shuffles", "local", True, "sweep", "vmap", False),
     ("shuffles", "kernel", False, "grid", "loop", True),
     ("shuffles", "kernel", True, "grid", "loop", True),
+    ("shuffles", "sharded", False, "grid", "loop", True),
+    ("shuffles", "sharded", True, "grid", "loop", True),
+    ("population", "sharded", False, "cohort", "loop", False),
 ]
+
+#: a small population for the router's table
+POP = dict(name="pop", m=300, d=12, n_min=12, n_max=32)
 
 
 def _problem(pkg, kind):
+    if kind == "population":
+        if pkg is ja:
+            return ja.Problem(population=Population(PopulationSpec(**POP),
+                                                    seed=0))
+        from repro_torch.cohort import Population as TPopulation
+        from repro_torch.cohort import PopulationSpec as TPopulationSpec
+        return ta.Problem(population=TPopulation(TPopulationSpec(**POP),
+                                                 seed=0))
     train = (jax_federation(JSpec(**SPEC))[0] if pkg is ja
              else make_federation(TSpec(**SPEC), device="cpu")[0])
     if kind == "shuffles":
@@ -222,23 +237,29 @@ def test_router_golden_table(kind, engine, semi, path, driver, falls_back):
 
 @pytest.mark.parametrize("kind", ["silo", "shuffles"])
 def test_router_sharded_and_population_name_their_items(kind):
-    """The sharded engine still names its item; a population now routes to
-    the cohort path, as in the JAX package, on either engine."""
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ta.route(ta.Experiment(problem=_problem(ta, kind),
-                               exec=ta.Exec(engine="sharded")))
-    from repro_torch.cohort import Population as TPopulation
-    from repro_torch.cohort import PopulationSpec as TPopulationSpec
-    spec = dict(name="pop", m=300, d=12, n_min=12, n_max=32)
+    """The sharded engine (item 13) routes as in the JAX package and its
+    experiment runs; a population routes to the cohort path, as in the
+    JAX package, on either engine."""
+    jplan = ja.route(ja.Experiment(problem=_problem(ja, kind),
+                                   exec=ja.Exec(engine="sharded")))
+    exp = ta.Experiment(
+        problem=_problem(ta, kind),
+        method=ta.Method(regularizers=(tc.MeanRegularized(**_REG),),
+                         rounds=2),
+        exec=ta.Exec(engine="sharded", device="cpu"))
+    tplan = ta.route(exp)
+    assert (tplan.path, tplan.driver, tplan.reason) == (
+        jplan.path, jplan.driver, jplan.reason)
+    rep = exp.run(0)
+    assert (rep.provenance["path"], rep.provenance["engine"]) == (
+        tplan.path, "sharded")
+    assert np.isfinite(rep.result.W).all()
     engine = "local" if kind == "silo" else "kernel"
     jplan = ja.route(ja.Experiment(
-        problem=ja.Problem(population=Population(PopulationSpec(**spec),
-                                                 seed=0)),
+        problem=_problem(ja, "population"),
         exec=ja.Exec(engine="pallas" if engine == "kernel" else engine)))
-    tplan = ta.route(ta.Experiment(
-        problem=ta.Problem(population=TPopulation(TPopulationSpec(**spec),
-                                                  seed=0)),
-        exec=ta.Exec(engine=engine)))
+    tplan = ta.route(ta.Experiment(problem=_problem(ta, "population"),
+                                   exec=ta.Exec(engine=engine)))
     assert (tplan.path, tplan.driver, tplan.reason) == (
         jplan.path, jplan.driver, jplan.reason)
     assert tplan.path == "cohort" and tplan.engine == engine
