@@ -24,8 +24,10 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    f32 and bf16; flash f32 at every head_dim with a ragged S, windows and
    GQA; flash bf16 (wgmma + TMA) at head_dim 128 and 256 and with
    one-hot probabilities; decode at lengths on the split's chunk
-   boundaries, also against the plain split-and-merge; and decode's slots
-   past lengths (bitwise no influence);
+   boundaries, also against the plain split-and-merge; flash (the CUDA-core
+   kernel, f32 and bf16: ragged S, causal, windows, GQA) and decode
+   (ragged lengths) at head_dim 112, zamba2-7b's; and decode's slots past
+   lengths (bitwise no influence);
 4. the MOCHA main path: full-size experiments through
    ``repro_torch.api.Experiment.run`` with ``engine="kernel"``, every launch
    counter set to 0 just before each and read just after, then the same
@@ -93,14 +95,28 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    f32 masters, step 0 of the kernel route against the plain route (its
    every flash call within ``flash_tolerance``; two planted wrong flash
    routes must fail the same limits), the loss falling, 32 flash launches
-   a step;
+   a step; then the other model families (``phase_families``) at their
+   published widths, random weights from seed 0, through
+   ``Engine.generate`` with 16 new tokens in f32 and bf16: mixtral-8x7b (4
+   of 32 layers; B 1, a 4096-token prompt filling its 4096-slot ring, which
+   the decode steps wrap), granite-moe-1b-a400m, llava-next-mistral-7b
+   (1152 image embeddings + 128 text tokens), musicgen-medium (4
+   codebooks), rwkv6-7b and zamba2-7b (81 mamba2 blocks, 13 shared
+   attention calls at head_dim 112), B 2 x 256 unless said; launches held
+   to the attention calls a forward (flash) and 15 x that (decode), the
+   plain route fed the kernel route's tokens within LOGIT_TOL (in bf16 the
+   MoE families' plain route takes the kernel route's expert choices;
+   its own are reported), greedy tokens equal in f32; mixtral's decode
+   steps past the ring's end against the windowed full-sequence forward
+   over the same 4112 tokens; the card freed between families;
 8. time the SDCA kernel (CUDA events over many launches) beside its bound
    and its chain floor (a model printed on the timing line: chain steps x
    one dependent step counted from the kernel's instructions at assumed
    latencies), its plain version and the wall time per
    round of both engines on the loop driver; profile three kernel-engine rounds
    (``torch.profiler``);
-9. time flash and decode at SmolLM-360M's shapes (kernel, plain version,
+9. time flash and decode at SmolLM-360M's shapes and at zamba2-7b's
+   head_dim 112 (kernel, plain version,
    ``scaled_dot_product_attention``) beside their bounds, with each
    kernel's design and share of the bound; prefill ms and decode ms per
    token of both routes; profile a prefill and decode steps in f32 and
@@ -1807,6 +1823,23 @@ def phase_attention_kernels():
             f"{str(dt)[6:]}", case, decode_attention_split_ref(
                 case["q"][:, 0], case["k"], case["v"], case["lengths"],
                 chunk)[:, None])
+    # head_dim 112 (zamba2-7b's shared attention, 32/32 heads): the
+    # CUDA-core flash kernel in f32 and bf16, ragged S, causal, with and
+    # without a window, GQA; decode over ragged lengths
+    for dt in (f32, bf16):
+        n = str(dt)[6:]
+        run("flash", f"d112 ragged S 333 H4/4 causal {n}",
+            flash_case(2, 333, 4, 4, 112, dt))
+        run("flash", f"d112 ragged S 300 GQA 6/2 window 100 {n}",
+            flash_case(1, 300, 6, 2, 112, dt, window=100))
+        run("flash", f"d112 ragged S 77 non-causal window 16 {n}",
+            flash_case(1, 77, 2, 1, 112, dt, causal=False, window=16))
+        run("flash", f"d112 zamba2 B2 S256 H32/32 {n}",
+            flash_case(2, 256, 32, 32, 112, dt))
+        run("decode", f"d112 zamba2 B2 T280 H32/32 lengths 1, 271 {n}",
+            decode_case(2, 280, 32, 32, 112, [1, 271], dt))
+        run("decode", f"d112 B3 T1000 GQA 8/2 ragged lengths {n}",
+            decode_case(3, 1000, 8, 2, 112, [999, 64, 513], dt))
     check_decode_masking(lens)
     return errs
 
@@ -2025,62 +2058,91 @@ def _host_ms(fn, cases, reps):
 
 def _device_ms_per_call(fn, cases, reps, keys):
     """Device time per call of the kernels whose names hold one of
-    ``keys``, by torch.profiler: the kernels alone, without the gaps the
-    host leaves between calls."""
+    ``keys`` (each launched once a call), by torch.profiler: the kernels
+    alone, without the gaps the host leaves between calls.  Each kernel's
+    mean over the launches the profiler recorded, which can be fewer than
+    ``reps`` (then printed); none recorded raises."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(reps):
             fn(cases[i % len(cases)])
         torch.cuda.synchronize()
-    return sum(_device_ms(e) for e in prof.key_averages()
-               if any(k in e.key for k in keys)) / reps
+    events = prof.key_averages()
+    found = [e for e in events
+             if any(k in e.key for k in keys) and _device_ms(e) > 0]
+    if not found:
+        seen = sorted(events, key=_device_ms, reverse=True)[:5]
+        raise AssertionError(
+            f"the profiler saw no device time of {keys}; it saw "
+            f"{[(e.key[:60], round(_device_ms(e), 4)) for e in seen]}")
+    short = [(e.key[:48], e.count) for e in found if e.count != reps]
+    if short:
+        print(f"profiler: recorded launches {short} of {reps} calls",
+              flush=True)
+    return sum(_device_ms(e) / e.count for e in found)
+
+
+#: the shapes each attention kernel is timed at: (label, B, S of flash, T
+#: of decode and its lengths' range, H, Hkv, D, copies of a flash and a
+#: decode case cycled through, more bytes than the 50 MB L2 holds)
+TIMING_SHAPES = {
+    "smollm": ("SmolLM-360M one layer", BATCH, PROMPT, MAX_LEN,
+               (PROMPT, MAX_LEN - 8), 15, 5, 64, 2, 5),
+    "zamba2": ("zamba2-7b shared attention", 2, 256, 280, (256, 272), 32,
+               32, 112, 4, 5)}
 
 
 def phase_attention_timing(errs):
-    """Each attention kernel at the main path's shapes: kernel, plain
-    version and SDPA per call by CUDA events, and the bound."""
+    """Each attention kernel at the main path's shapes (SmolLM-360M) and at
+    zamba2-7b's head_dim 112: kernel, plain version and SDPA per call by
+    CUDA events, and the bound.  Rows keyed (kernel, dtype) for SmolLM,
+    (kernel, dtype, "zamba2") for zamba2."""
     rows = {}
-    lens = np.random.default_rng(2).integers(PROMPT, MAX_LEN - 8,
-                                             BATCH).tolist()
-    for dtype in (torch.float32, torch.bfloat16):
-        name_dt = str(dtype)[6:]
-        for name, n_copies in (("flash", 2), ("decode", 5)):
-            make = ((lambda i: flash_case(BATCH, PROMPT, 15, 5, 64, dtype,
-                                          seed=10 * i)) if name == "flash"
-                    else (lambda i: decode_case(BATCH, MAX_LEN, 15, 5, 64,
-                                                lens, dtype, seed=10 * i)))
-            cases = [make(i) for i in range(n_copies)]
-            kernel = lambda c: _attn_kernel(name, c)   # noqa: E731
-            ms = _rotating_ms(kernel, cases, 50)
-            plain_ms = _rotating_ms(lambda c: _attn_plain(name, c), cases, 5)
-            lib_ms = _rotating_ms(lambda c: _sdpa(name, c), cases, 50)
-            host_ms = _host_ms(kernel, cases, 50)
-            device_ms = _device_ms_per_call(kernel, cases, 50,
-                                            _PROFILE_KERNELS[name])
-            if not device_ms > 0:
-                raise AssertionError(f"the profiler saw no {name} kernel "
-                                     f"on the device")
-            b = attention_bound(name, cases[0])
-            row = dict(design=design(name, dtype), ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, host_ms=host_ms,
-                       device_ms=device_ms, max_abs_err=errs[(name, dtype)],
-                       share_of_bound=b["bound_ms"] / ms,
-                       device_share_of_bound=b["bound_ms"] / device_ms,
-                       **b)
-            rows[(name, name_dt)] = row
-            print(f"timing [{name} {name_dt} ({row['design']}), SmolLM-360M "
-                  f"one layer"
-                  f"{', lengths ' + str(lens) if name == 'decode' else ''}]"
-                  f": kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms, "
-                  f"SDPA {lib_ms:.4f} ms, bound {b['bound_ms']:.5f} ms "
-                  f"({b['bound_by']}; {b['bytes'] / 1e6:.2f} MB, "
-                  f"{b['flops'] / 1e9:.3f} GFLOP), kernel at "
-                  f"{100 * row['share_of_bound']:.1f}% of the bound; device "
-                  f"time {device_ms:.4f} ms/call "
-                  f"({100 * row['device_share_of_bound']:.1f}% of the "
-                  f"bound), host enqueue {host_ms:.4f} ms/call "
-                  f"[{card_line()}]", flush=True)
+    for shape, (label, bb, ss, tt, lrange, hh, hkv, dd, n_flash,
+                n_decode) in TIMING_SHAPES.items():
+        lens = np.random.default_rng(2).integers(*lrange, bb).tolist()
+        for dtype in (torch.float32, torch.bfloat16):
+            name_dt = str(dtype)[6:]
+            for name, n_copies in (("flash", n_flash), ("decode", n_decode)):
+                def make(i, name=name, dtype=dtype, lens=lens):
+                    if name == "flash":
+                        return flash_case(bb, ss, hh, hkv, dd, dtype,
+                                          seed=10 * i)
+                    return decode_case(bb, tt, hh, hkv, dd, lens, dtype,
+                                       seed=10 * i)
+                cases = [make(i) for i in range(n_copies)]
+                kernel = lambda c, name=name: _attn_kernel(name, c)  # noqa
+                ms = _rotating_ms(kernel, cases, 50)
+                plain_ms = _rotating_ms(
+                    lambda c, name=name: _attn_plain(name, c), cases, 5)
+                lib_ms = _rotating_ms(lambda c, name=name: _sdpa(name, c),
+                                      cases, 50)
+                host_ms = _host_ms(kernel, cases, 50)
+                device_ms = _device_ms_per_call(kernel, cases, 50,
+                                                _PROFILE_KERNELS[name])
+                b = attention_bound(name, cases[0])
+                row = dict(design=design(name, dtype, dd), ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           host_ms=host_ms, device_ms=device_ms,
+                           max_abs_err=errs[(name, dtype)],
+                           share_of_bound=b["bound_ms"] / ms,
+                           device_share_of_bound=b["bound_ms"] / device_ms,
+                           **b)
+                key = (name, name_dt) if shape == "smollm" else (
+                    name, name_dt, shape)
+                rows[key] = row
+                print(f"timing [{name} {name_dt} ({row['design']}), {label}"
+                      f"{', lengths ' + str(lens) if name == 'decode' else ''}"
+                      f"]: kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms, "
+                      f"SDPA {lib_ms:.4f} ms, bound {b['bound_ms']:.5f} ms "
+                      f"({b['bound_by']}; {b['bytes'] / 1e6:.2f} MB, "
+                      f"{b['flops'] / 1e9:.3f} GFLOP), kernel at "
+                      f"{100 * row['share_of_bound']:.1f}% of the bound; "
+                      f"device time {device_ms:.4f} ms/call "
+                      f"({100 * row['device_share_of_bound']:.1f}% of the "
+                      f"bound), host enqueue {host_ms:.4f} ms/call "
+                      f"[{card_line()}]", flush=True)
     return rows
 
 
@@ -2434,6 +2496,17 @@ def _topic_tasks(vocab):
     return batches, labels
 
 
+def _hold_call(tally, label, name, out, ref, tol):
+    """One kernel call's output against its plain version's: ``tally``
+    gathers the calls and the largest share of the tolerance."""
+    share = float(((out.float() - ref.float()).abs() / tol).max())
+    tally["calls"] = tally.get("calls", 0) + 1
+    tally["share"] = max(tally.get("share", 0.0), share)
+    if not share <= 1.0:
+        raise AssertionError(f"{label}: a {name} call exceeds its "
+                             f"tolerance ({share:.3f} of it)")
+
+
 @contextlib.contextmanager
 def held_flash_calls(tally, label):
     """Every flash_mha call of the model's layers held against the plain
@@ -2451,12 +2524,7 @@ def held_flash_calls(tally, label):
             ref = attention_ref(q, k, v, causal=causal, window=window)
             tol = flash_tolerance(q, k, v, ref, causal=causal,
                                   window=window)
-            share = float(((out.float() - ref.float()).abs() / tol).max())
-        tally["calls"] = tally.get("calls", 0) + 1
-        tally["share"] = max(tally.get("share", 0.0), share)
-        if share > 1.0:
-            raise AssertionError(f"{label}: a flash call exceeds its "
-                                 f"tolerance ({share:.3f} of it)")
+            _hold_call(tally, label, "flash", out, ref, tol)
         return out
 
     layers.flash_mha = flash
@@ -2464,6 +2532,31 @@ def held_flash_calls(tally, label):
         yield
     finally:
         layers.flash_mha = saved
+
+
+@contextlib.contextmanager
+def held_decode_calls(tally, label):
+    """Every decode_mha call of the model's layers (a window's ring steps
+    too) held against ``decode_attention_ref`` on its inputs within
+    ``attention_tolerance``; ``tally`` as in ``held_flash_calls``."""
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import attention_tolerance
+    from repro_torch.models import layers
+    saved = layers.decode_mha
+
+    def decode(q, k, v, lengths):
+        out = saved(q, k, v, lengths)
+        with torch.no_grad():
+            ref = decode_attention_ref(q[:, 0], k, v, lengths)[:, None]
+            _hold_call(tally, label, "decode", out, ref,
+                       attention_tolerance(ref))
+        return out
+
+    layers.decode_mha = decode
+    try:
+        yield
+    finally:
+        layers.decode_mha = saved
 
 
 def phase_personalize():
@@ -2765,6 +2858,276 @@ def phase_train():
     return dict(runs=out, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# the other model families at their published widths
+# ---------------------------------------------------------------------------
+
+#: (arch, layers run (None: all), batch, prompt tokens (vlm: text after the
+#: image embeds; audio: frames of n_codebooks tokens)), random weights from
+#: seed 0.  Depth is cut only where the f32 weights and their bf16 copy
+#: would not fit the card: mixtral-8x7b's 32 layers are 280 GB, its 4 are
+#: ~35 GB.  Prompts are multiples of 64 (WKV_CHUNK, ssm_chunk), so the
+#: chunked scans never fall back to one chunk of S; mixtral's 4096 fills its
+#: 4096-slot ring (S == T) and its 16 new tokens wrap it.
+FAMILIES = (("mixtral-8x7b", 4, 1, 4096),
+            ("granite-moe-1b-a400m", None, 2, 256),
+            ("llava-next-mistral-7b", None, 1, 128),
+            ("musicgen-medium", None, 2, 256),
+            ("rwkv6-7b", None, 2, 256),
+            ("zamba2-7b", None, 2, 256))
+FAMILY_NEW = 16
+
+
+def family_model(arch, depth):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    return build_model(cfg, device=DEV, seed=SEED)
+
+
+def family_batch(cfg, b, prompt):
+    """The family's prompt batch, from seed 0: tokens (B, S) (audio: (B, S,
+    C)); vlm also ``frontend_tokens`` image embeddings (B, P, D)."""
+    rng = np.random.default_rng(SEED)
+    shape = (b, prompt, cfg.n_codebooks) if cfg.family == "audio" else (
+        b, prompt)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, shape)).to(DEV)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)).to(DEV)
+    return batch
+
+
+def attention_calls(model):
+    """Flash launches a forward (decode launches a step): the attention
+    blocks, the hybrid's shared-block calls, none for rwkv6."""
+    cfg = model.cfg
+    if cfg.block_type == "attention":
+        return cfg.n_layers
+    return model.n_periods
+
+
+def family_forced_logits(model, batch, forced, dtype, max_len):
+    """``Engine.generate``'s logits with the decode steps fed ``forced``
+    (B, NEW) (audio: (B, NEW, C)) instead of their own greedy choices."""
+    b = batch["tokens"].shape[0]
+    cache = model.init_cache(b, max_len, dtype=dtype)
+    logits, cache = model.prefill(batch, cache, dtype=dtype)
+    seen = [logits]
+    for i in range(forced.shape[1] - 1):
+        tok = torch.from_numpy(np.ascontiguousarray(forced[:, i])).to(
+            DEV, torch.int32)
+        logits, cache = model.decode_step(tok, cache, dtype=dtype)
+        seen.append(logits)
+    return torch.stack(seen, dim=1)
+
+
+@contextlib.contextmanager
+def moe_routing(record=None, replay=None):
+    """``models.moe.top_k`` (the router's expert choice) appending each
+    call's experts to ``record``, or returning, call by call, the experts
+    in ``replay`` with this route's own probabilities for them.  For the
+    route comparison only: bf16 rounds the router's logits, so a near-tie
+    between two experts can fall either way on the two routes, and a token
+    sent to another expert is another function, not a rounding error."""
+    from repro_torch.models import moe
+    saved = moe.top_k
+    choices = None if replay is None else iter(replay)
+
+    def top_k(probs, k):
+        if choices is not None:
+            idx = next(choices)
+            return probs.gather(-1, idx), idx
+        vals, idx = saved(probs, k)
+        record.append(idx)
+        return vals, idx
+
+    moe.top_k = top_k
+    try:
+        yield
+    finally:
+        moe.top_k = saved
+
+
+def routing_flips(a, b):
+    """Tokens (in all layers and calls) whose expert sets differ."""
+    return sum(int((torch.sort(x, -1)[0] != torch.sort(y, -1)[0]).any(
+        -1).sum()) for x, y in zip(a, b))
+
+
+def check_ring(model, batch, tokens, max_len):
+    """mixtral's ring: prefill fills its T slots, each decode step writes
+    slot pos % T.  The steps (fed ``tokens``) against one full-sequence
+    forward over the same prompt + NEW tokens with the window (f32, kernel
+    route).  Both route every token (capacity factor E / k), so a token the
+    prefill's capacity drops and the longer forward keeps cannot differ."""
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                    / cfg.top_k)
+    try:
+        steps = family_forced_logits(model, batch, tokens, torch.float32,
+                                     max_len)
+        seq = torch.cat([batch["tokens"], torch.from_numpy(tokens).to(DEV)],
+                        dim=1)
+        full, aux = model.apply({"tokens": seq})
+    finally:
+        model.cfg = cfg
+    s = batch["tokens"].shape[1]
+    want = full[:, s - 1:s - 1 + tokens.shape[1]]
+    scale = max(1.0, float(want.abs().max()))
+    err = float((steps - want).abs().max())
+    past = float((steps[:, 1:] - want[:, 1:]).abs().max())
+    ok = err <= LOGIT_TOL[torch.float32] * scale and \
+        float(aux["moe_drop_frac"]) == 0.0
+    print(f"families [{cfg.name} ring]: T {min(cfg.sliding_window, max_len)}"
+          f" slots, prefill {s} + {tokens.shape[1] - 1} decode steps "
+          f"(positions {s}..{s + tokens.shape[1] - 2}) against the windowed "
+          f"forward over {seq.shape[1]} tokens: max abs err {err:.3e} "
+          f"(steps past the ring's end {past:.3e}; tolerance "
+          f"{LOGIT_TOL[torch.float32]:g} x {scale:.3g}), dropped "
+          f"{float(aux['moe_drop_frac']):g} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{cfg.name}: the ring's decode steps differ "
+                             f"from the windowed forward")
+    return err
+
+
+def phase_families():
+    """Each other family at its published widths through Engine.generate,
+    f32 and bf16: the kernel route with the launch counters set to 0 just
+    before each generate and read just after (flash: the attention calls a
+    forward; decode: NEW - 1 times that), then the plain route on the card
+    fed the kernel route's tokens, logits within LOGIT_TOL and greedy
+    tokens equal in f32; the kernel route once more with each flash and
+    decode call held against its plain version on its own inputs
+    (``held_flash_calls``, ``held_decode_calls``); mixtral's wrapped ring
+    against the windowed forward.  The card is freed between families."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Engine, ServeConfig
+    out = {"flash_attention": 0, "decode_attention": 0, "runs": {}}
+    for arch, depth, b, prompt in FAMILIES:
+        t0 = time.perf_counter()
+        model = family_model(arch, depth)
+        cfg = model.cfg
+        batch = family_batch(cfg, b, prompt)
+        prefix = cfg.frontend_tokens if cfg.family == "vlm" else 0
+        max_len = prefix + prompt + FAMILY_NEW + 8
+        calls = attention_calls(model)
+        want = {"flash_attention": calls,
+                "decode_attention": calls * (FAMILY_NEW - 1),
+                "sdca_local_solve": 0}
+        n_params = sum(p.numel() for p in model.parameters())
+        cut = ("" if depth is None else
+               f", {depth} of {get_config(arch).n_layers} layers")
+        what = f"B{b} prompt {prefix + prompt}" + (
+            f" ({prefix} image embeds)" if prefix else "")
+        runs, tokens_f32 = {}, None
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            eng = Engine(model, ServeConfig(max_len=max_len,
+                                            max_new_tokens=FAMILY_NEW,
+                                            cache_dtype=dtype))
+            routes_k, routes_p = [], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_all_counts()
+            t1 = time.perf_counter()
+            with moe_routing(record=routes_k):
+                tok_k, lg_k = eng.generate(batch, return_logits=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if counts != want:
+                raise AssertionError(f"{arch} {name}: launches {counts}, "
+                                     f"expected {want}")
+            # the kernel route again, outside the counted run, each flash
+            # and decode call held against its plain version on its inputs
+            held_f, held_d = {}, {}
+            if calls:
+                with held_flash_calls(held_f, f"{arch} {name}"), \
+                        held_decode_calls(held_d, f"{arch} {name}"):
+                    eng.generate(batch, return_logits=True)
+                if (held_f["calls"], held_d["calls"]) != (
+                        want["flash_attention"], want["decode_attention"]):
+                    raise AssertionError(f"{arch} {name}: held {held_f} "
+                                         f"{held_d}, expected {want}")
+            held = (f"; each call held against its plain version: flash "
+                    f"{held_f.get('calls', 0)} (largest share of "
+                    f"flash_tolerance {held_f.get('share', 0.0):.3f}), "
+                    f"decode {held_d.get('calls', 0)} (largest share of "
+                    f"attention_tolerance {held_d.get('share', 0.0):.3f})")
+            reset_all_counts()
+            with plain_attention():
+                with moe_routing(record=routes_p):
+                    lg_p = family_forced_logits(model, batch, tok_k, dtype,
+                                                max_len)
+                routed = ""
+                if cfg.is_moe and dtype == torch.bfloat16:
+                    # the plain route on the kernel route's experts; its own
+                    # choices are reported beside it, not held
+                    free = float((lg_k - lg_p).float().abs().max())
+                    flips = routing_flips(routes_k, routes_p)
+                    with moe_routing(replay=routes_k):
+                        lg_p = family_forced_logits(model, batch, tok_k,
+                                                    dtype, max_len)
+                    routed = (f"; the plain route on the kernel route's "
+                              f"experts (on its own: {flips} of "
+                              f"{sum(len(r) for r in routes_k)} token "
+                              f"choices differ, max abs err {free:.3e}, not "
+                              f"held)")
+            if any(read_counts().values()):
+                raise AssertionError(f"the plain route launched a kernel: "
+                                     f"{read_counts()}")
+            vocab = ((cfg.n_codebooks, cfg.vocab_size) if cfg.family ==
+                     "audio" else (cfg.vocab_size,))
+            if lg_k.shape != (b, FAMILY_NEW) + vocab or \
+                    not torch.isfinite(lg_k).all():
+                raise AssertionError(f"{arch} logits {tuple(lg_k.shape)} "
+                                     f"not finite or of the wrong shape")
+            scale = max(1.0, float(lg_p.float().abs().max()))
+            err = float((lg_k - lg_p).float().abs().max())
+            same = bool(np.array_equal(
+                tok_k, torch.argmax(lg_p, dim=-1).cpu().numpy()))
+            tol = LOGIT_TOL[dtype] * scale
+            print(f"families [{arch}{cut} {name}, {what} + {FAMILY_NEW} "
+                  f"new, {n_params / 1e9:.3f} B params]: "
+                  f"launches {counts}; logits kernel vs plain (fed the "
+                  f"kernel route's tokens) max abs err {err:.3e} (tolerance "
+                  f"{LOGIT_TOL[dtype]:g} x {scale:.3g}){routed}{held}; "
+                  f"greedy tokens equal: {same}; wall generate {wall:.3f} "
+                  f"s; peak {peak:.2f} GiB [{card_line()}]", flush=True)
+            if err > tol:
+                raise AssertionError(f"{arch} {name}: logits of the kernel "
+                                     f"route differ from the plain route")
+            if dtype == torch.float32:
+                tokens_f32 = tok_k
+                if not same:
+                    raise AssertionError(f"{arch}: greedy tokens differ in "
+                                         f"float32")
+            runs[name] = dict(counts=counts, err=err, wall_s=wall,
+                              peak_gib=peak, tokens_equal=same,
+                              flash_share=held_f.get("share"),
+                              decode_share=held_d.get("share"))
+            for k in ("flash_attention", "decode_attention"):
+                out[k] += counts[k]
+        if cfg.sliding_window is not None:
+            runs["ring_err"] = check_ring(model, batch, tokens_f32, max_len)
+        out["runs"][arch] = dict(runs, layers=cfg.n_layers, batch=b,
+                                 prompt=prefix + prompt,
+                                 params=n_params,
+                                 wall_s=time.perf_counter() - t0)
+        del model, eng, lg_k, lg_p
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2789,6 +3152,7 @@ def main() -> int:
     phase_lm_small_reference()
     pers = phase_personalize()
     train = phase_train()
+    families = phase_families()
     shapes = phase_timing(main_runs, errs)
     phase_profile(main_runs)
     attn = phase_attention_timing(attn_errs)
@@ -2807,9 +3171,11 @@ def main() -> int:
     flash_paths = {"lm_generate": sum(lm[dt]["counts"]["flash_attention"]
                                       for dt in ("float32", "bfloat16")),
                    "personalize": pers["counts"]["flash_attention"],
-                   "train": train["launches"]}
+                   "train": train["launches"],
+                   "families": families["flash_attention"]}
     decode_paths = {"lm_generate": sum(lm[dt]["counts"]["decode_attention"]
-                                       for dt in ("float32", "bfloat16"))}
+                                       for dt in ("float32", "bfloat16")),
+                    "families": families["decode_attention"]}
     kernels = [dict(
         name="sdca_local_solve", route="cuda",
         source="src/repro_torch/kernels/sdca/csrc/sdca.cu",
@@ -2838,7 +3204,9 @@ def main() -> int:
             ms=f32["ms"], plain_ms=f32["plain_ms"],
             bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
             library_ms=f32["library_ms"],
-            shapes={"float32": f32, "bfloat16": bf16}))
+            shapes={"float32": f32, "bfloat16": bf16,
+                    "zamba2_float32": attn[(name, "float32", "zamba2")],
+                    "zamba2_bfloat16": attn[(name, "bfloat16", "zamba2")]}))
     print(json.dumps({"serve_ms": serve}))
     print(json.dumps({"eval_path": eval_path}))
     print(json.dumps({"cohort_path": cohort}))
@@ -2846,6 +3214,7 @@ def main() -> int:
     print(json.dumps({"sharded_path": sharded}))
     print(json.dumps({"personalize": pers}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"families": families["runs"]}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,9 @@
 """Architecture configuration: a copy of the JAX package's ``ArchConfig``.
 
-One dataclass covers every architecture the JAX package assigns; the
-per-arch modules of this package instantiate the configs the port serves
-(dense attention: smollm-360m, granite-3-2b, gemma-2b, starcoder2-15b) and
-register them under their id for ``--arch <id>`` selection.  The other
-architectures are named here and raise until their families are ported.
+One dataclass covers all 10 assigned architectures; the per-arch modules
+of this package instantiate the exact configs (with source citations) and
+register them under their id for ``--arch <id>`` selection
+(``configs.archs.ALL_ARCHS`` lists them).
 """
 from __future__ import annotations
 
@@ -115,13 +114,6 @@ class ArchConfig:
         )
 
 
-#: assigned architectures whose families the port does not run yet
-_UNPORTED = {
-    name: "ROADMAP.md Queue 1 item 14d (MoE, rwkv6, mamba2/hybrid, vlm/audio)"
-    for name in ("musicgen-medium", "llava-next-mistral-7b", "rwkv6-7b",
-                 "mixtral-8x7b", "granite-moe-1b-a400m", "zamba2-7b")}
-
-
 def register(cfg: ArchConfig) -> ArchConfig:
     _REGISTRY[cfg.name] = cfg
     return cfg
@@ -129,9 +121,6 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 def get_config(name: str) -> ArchConfig:
     _ensure_loaded()
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not in the port yet ({_UNPORTED[name]})")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
@@ -144,5 +133,4 @@ def list_configs() -> Dict[str, ArchConfig]:
 
 def _ensure_loaded() -> None:
     # import per-arch modules for registration side effects
-    from repro_torch.configs import (gemma_2b, granite_3_2b,  # noqa: F401
-                                     smollm_360m, starcoder2_15b)
+    from repro_torch.configs import archs  # noqa: F401

@@ -66,13 +66,28 @@ def omega_from_numpy(omega, device: Optional[str] = None) -> torch.Tensor:
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg,
                          device: Optional[str] = None):
     """The port's ``Model`` of ``cfg`` holding the JAX parameter tree
-    ``tree`` (numpy leaves).  Blocks may be stacked on a leading layer axis
-    (``scan_layers=True``) or a list of per-layer trees (``reduced()``)."""
+    ``tree`` (numpy leaves), of any family: attention (dense, MoE, vlm,
+    audio), rwkv6 or the mamba2 hybrid with its ``shared`` block and
+    ``shared_proj``.  Blocks may be a list of per-layer trees
+    (``reduced()``) or stacked (``scan_layers=True``): on a leading layer
+    axis, or for the hybrid on (n_periods, period) axes with the leftover
+    layers stacked in ``tail_blocks``."""
     from repro_torch.models.transformer import Model
     model = Model(cfg, device=resolve_device(device), seed=None)
+    tree = dict(tree)
     blocks = tree["blocks"]
+    tail = tree.pop("tail_blocks", None)
     if isinstance(blocks, Mapping):    # stacked: take layer i of each leaf
-        blocks = [_layer(blocks, i) for i in range(cfg.n_layers)]
+        if cfg.shared_attn_period:
+            period = cfg.shared_attn_period
+            n_periods = cfg.n_layers // period
+            blocks = [_layer(_layer(blocks, i), j)
+                      for i in range(n_periods) for j in range(period)]
+            if tail is not None:
+                blocks += [_layer(tail, j) for j in range(
+                    cfg.n_layers - n_periods * period)]
+        else:
+            blocks = [_layer(blocks, i) for i in range(cfg.n_layers)]
     if len(blocks) != cfg.n_layers:
         raise ValueError(f"{len(blocks)} blocks for {cfg.n_layers} layers")
     _copy_into(model.tree(), dict(tree, blocks=list(blocks)), "params")

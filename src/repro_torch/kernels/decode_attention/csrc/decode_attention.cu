@@ -9,7 +9,10 @@
 // NaN) has exactly no influence on the output.
 //
 // Layout: q and o are (B, H, D), the cache k and v (B, T, Hkv, D), all
-// contiguous, read in place (T need not be a multiple of the tile).  Inputs
+// contiguous, read in place (T need not be a multiple of the tile).  D is
+// 32, 64, 112, 128 or 256: a row is a whole number of 16-byte chunks (at 112,
+// 28 in f32 and 14 in bf16, so a group's 8 lanes take 4 or 2 of them, the
+// last ones partly idle), and the TMA box is one unswizzled row wide.  Inputs
 // are f32 or bf16; the output has the input's type; the arithmetic is f32.
 //
 // What bounds it on this card: bytes.  One SmolLM-360M decode step at B 8
@@ -376,6 +379,9 @@ int dispatch(int D, const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64>(q, k, v, lengths, o, partials, B, Tlen, H, Hkv,
                            chunk, scale, device, stream);
+    case 112:
+      return launch<T, 112>(q, k, v, lengths, o, partials, B, Tlen, H, Hkv,
+                            chunk, scale, device, stream);
     case 128:
       return launch<T, 128>(q, k, v, lengths, o, partials, B, Tlen, H, Hkv,
                             chunk, scale, device, stream);
@@ -392,6 +398,7 @@ long long shared_bytes(int G, int D, int chunk) {
   switch (D) {
     case 32: return (long long)make_layout<T, 32>(G, chunk).bytes;
     case 64: return (long long)make_layout<T, 64>(G, chunk).bytes;
+    case 112: return (long long)make_layout<T, 112>(G, chunk).bytes;
     case 128: return (long long)make_layout<T, 128>(G, chunk).bytes;
     case 256: return (long long)make_layout<T, 256>(G, chunk).bytes;
     default: return -1;

@@ -1,5 +1,6 @@
 """Causal / sliding-window flash attention as Hopper kernels (CUDA C++,
-sm_90a): wgmma and TMA for bf16, the CUDA cores for f32."""
+sm_90a): wgmma and TMA for bf16 at head_dim 64, 128 and 256, the CUDA cores
+for f32 and the other head dims."""
 from repro_torch.kernels.flash_attention.flash_attention import (
     COUNTS, design, flash_attention, reset_counts)
 from repro_torch.kernels.flash_attention.ops import flash_mha

@@ -51,7 +51,9 @@
 // ptxas's 168-register budget, so head_dim 256 spills.
 //
 // f32 at every head_dim, and bf16 at head_dim 32 (used by tests only; no config
-// of the port has it): CUDA cores ("cuda-core", flash_kernel below).  TF32 or
+// of the port has it) and 112 (zamba2-7b's shared attention; the wgmma
+// design's 128-byte swizzle atom, 64 bf16 columns, does not divide 112): CUDA
+// cores ("cuda-core", flash_kernel below).  TF32 or
 // split-bf16 products would not hold the f32 rule, so f32 stays on the FP32
 // pipes, and what bounds the kernel is how many FMAs each shared-memory load
 // feeds and how much of the time the loads, barriers and the softmax leave the
@@ -108,10 +110,13 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// N consecutive elements (N = 2 or 4, N-element aligned) as f32
+// N consecutive elements (N = 1, 2 or 4, N-element aligned) as f32
 template <int N, typename T>
 __device__ __forceinline__ void load_vec(const T* p, float* out) {
-  if constexpr (N == 4) {
+  if constexpr (N == 1) {
+    if constexpr (sizeof(T) == 4) out[0] = *p;
+    else out[0] = __bfloat162float(*p);
+  } else if constexpr (N == 4) {
     const float4 x = load4(p);
     out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
   } else if constexpr (sizeof(T) == 4) {
@@ -138,14 +143,16 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// f32 (and bf16 at head_dim 32) on the CUDA cores: register-tiled products
-// fed by a cp.async ring
+// f32 (and bf16 at head_dim 32 and 112) on the CUDA cores: register-tiled
+// products fed by a cp.async ring
 // ---------------------------------------------------------------------------
 
 // Tiles of the CUDA-core kernel at head_dim D: BQ query rows per block, BK
 // keys per K/V tile, TM rows per thread.  A thread owns TM rows x TN keys of
 // each score tile (keys kl + KL j) and the same TM rows x D / KL columns of
-// the output.  Shared memory: Q^T [D][BQ] f32, a ring of two K [BK][LDK]
+// the output, in chunks of VEC consecutive columns (c KL + kl) VEC + e: VEC is
+// 4, or 2 or 1 where D / KL is not a multiple of 4 (1 at head_dim 112, whose
+// 7 columns a thread take 7 scalar loads of each V row).  Shared memory: Q^T [D][BQ] f32, a ring of two K [BK][LDK]
 // tiles and one or two V [BK][D] tiles in the input's type, and P [BQ][LDP]
 // f32, which in the lean layout (LEAN: two blocks to an SM at head_dim 64)
 // takes the K stage its tile has consumed.
@@ -160,7 +167,7 @@ struct CcShape {
   static constexpr int KL = BK / TN;               // key lanes of a row group
   static constexpr int THREADS = KL * (BQ / TM);
   static constexpr int NCOL = D / KL;              // output columns a thread
-  static constexpr int VEC = NCOL < 4 ? NCOL : 4;
+  static constexpr int VEC = NCOL % 4 == 0 ? 4 : NCOL % 2 == 0 ? 2 : 1;
   static constexpr int NCH = NCOL / VEC;
   static constexpr int EPC = 16 / sizeof(T);       // elements per 16 bytes
   static constexpr int LDK = D + EPC;              // 16-byte rows, odd quads
@@ -173,7 +180,9 @@ struct CcShape {
   static constexpr size_t P_OFF = V_OFF + (LEAN ? 1 : 2) * V_STAGE;
   static constexpr size_t SMEM =
       P_OFF + (LEAN ? 0 : sizeof(float) * BQ * LDP);
-  static_assert(D % 32 == 0 && NCH >= 1 && TM % 4 == 0, "head_dim 32, 64, ..");
+  static_assert(D % EPC == 0 && NCOL * KL == D && NCH * VEC == NCOL &&
+                    TM % 4 == 0,
+                "head_dim a multiple of 16 bytes and of the key lanes");
   static_assert(!LEAN || sizeof(float) * BQ * LDP <= K_STAGE,
                 "P must fit in a K stage");
 };
@@ -409,6 +418,9 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<float, 64>(q, k, v, o, B, S, H, Hkv, causal, window,
                                scale, stream);
+    case 112:
+      return launch<float, 112>(q, k, v, o, B, S, H, Hkv, causal, window,
+                                scale, stream);
     case 128:
       return launch<float, 128>(q, k, v, o, B, S, H, Hkv, causal, window,
                                 scale, stream);
@@ -749,10 +761,12 @@ long long flash_attention_shared_bytes(int D, int dtype) {
   if (dtype == 1 && D == 128) return TcShape<128>::SMEM;
   if (dtype == 1 && D == 256) return TcShape<256>::SMEM;
   if (dtype == 1 && D == 32) return CcShape<__nv_bfloat16, 32>::SMEM;
+  if (dtype == 1 && D == 112) return CcShape<__nv_bfloat16, 112>::SMEM;
   if (dtype != 0) return -1;
   switch (D) {
     case 32: return CcShape<float, 32>::SMEM;
     case 64: return CcShape<float, 64>::SMEM;
+    case 112: return CcShape<float, 112>::SMEM;
     case 128: return CcShape<float, 128>::SMEM;
     case 256: return CcShape<float, 256>::SMEM;
     default: return -1;
@@ -760,7 +774,8 @@ long long flash_attention_shared_bytes(int D, int dtype) {
 }
 
 // Launches the kernel on `stream`: bf16 at head_dim 64, 128 or 256 on the
-// tensor cores, everything else on the CUDA cores.  dtype 0 is float32, 1
+// tensor cores, everything else (f32 at 32, 64, 112, 128, 256; bf16 at 32
+// and 112) on the CUDA cores.  dtype 0 is float32, 1
 // bfloat16; window <= 0 means none.  Returns 0, a CUDA error code,
 // kErrUnsupported for a head_dim or dtype without a build, or
 // hopper::kErrTensorMap.  Does not synchronise.
@@ -776,6 +791,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 32)
     return launch<__nv_bfloat16, 32>(q, k, v, o, B, S, H, Hkv, causal,
                                      window, scale, s);
+  if (dtype == 1 && D == 112)
+    return launch<__nv_bfloat16, 112>(q, k, v, o, B, S, H, Hkv, causal,
+                                      window, scale, s);
   if (dtype == 1)
     return dispatch_wgmma(D, q, k, v, o, B, S, H, Hkv, causal, window, scale,
                           s);

@@ -7,7 +7,7 @@ GQA wrapper: q (B, S, H, D) and k, v (B, S, Hkv, D), read in place.
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version (``ref.attention_ref``).  bf16 at head_dim 64,
 128 and 256 runs on the tensor cores (wgmma fed by TMA); f32, and bf16 at
-head_dim 32, on the CUDA cores (``design``).  Each launch adds one to
+head_dim 32 and 112, on the CUDA cores (``design``).  Each launch adds one to
 ``COUNTS["flash_attention"]``.
 """
 from __future__ import annotations
@@ -23,7 +23,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 #: launches of the kernel since the last ``reset_counts``
 COUNTS = {"flash_attention": 0}
 #: head dims and dtypes the kernel is built for (dtype -> its C code)
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims of the bf16 tensor-core kernel
 WGMMA_HEAD_DIMS = (64, 128, 256)

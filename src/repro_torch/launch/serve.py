@@ -1,11 +1,13 @@
 """Serving launcher: batched generate on a selected architecture.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --local --device cpu
 
-Runs on the card unless ``--device cpu``, in float32 (the engine's
-default); weights and prompts are random from seed 0.  The JAX launcher's
+``--arch`` is any of ``configs.archs.ALL_ARCHS``.  Runs on the card unless
+``--device cpu``, in float32 (the engine's default); weights and prompts
+are random from seed 0 (audio: codebook frames; vlm: text after
+``frontend_tokens`` random image embeddings).  The JAX launcher's
 ``--dry-run`` (an XLA compile of the production mesh) has no counterpart
 here.
 """
@@ -40,12 +42,21 @@ def main(argv=None) -> None:
     if args.local:
         cfg = cfg.reduced()
     model = build_model(cfg, device=args.device, seed=0)
+    prefix = cfg.frontend_tokens if cfg.family == "vlm" else 0
     engine = Engine(model, ServeConfig(
-        max_len=args.prompt_len + args.new_tokens + 8, temperature=0.0))
+        max_len=prefix + args.prompt_len + args.new_tokens + 8,
+        temperature=0.0))
     rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len))).to(model.device)
-    out = engine.generate({"tokens": tokens}, n_new=args.new_tokens)
+    shape = (args.batch, args.prompt_len)
+    if cfg.family == "audio":
+        shape += (cfg.n_codebooks,)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, shape)).to(model.device)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (args.batch, prefix, cfg.d_model)).astype(np.float32)).to(
+                model.device)
+    out = engine.generate(batch, n_new=args.new_tokens)
     print("generated:", out.shape)
     print(out[0].tolist())
 

@@ -5,8 +5,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --steps 20 --seq 512 --batch 4 --ckpt ckpt/smollm
 
-Runs on the card unless ``--device cpu``, in float32; weights are random
-from seed 0 and batches come from ``data.tokens.TokenStream``.  ``--ckpt``
+``--arch`` is any of ``configs.archs.ALL_ARCHS``.  Runs on the card
+unless ``--device cpu``, in float32; weights are random from seed 0 and
+batches come from ``data.tokens.TokenStream`` (the family's layout: audio
+codebook frames, vlm text after image embeddings).  ``--ckpt``
 saves the trained parameters through ``train.checkpoint``.  The JAX
 launcher's ``--dry-run`` and ``--multi-pod`` (XLA compiles of the
 production mesh) have no counterpart here (ROADMAP.md Queue 1 item 15).

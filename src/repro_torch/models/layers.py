@@ -12,7 +12,8 @@ Conventions, as there:
 The attention core goes through the port's two Hopper kernels: full
 sequences and prefill into a fresh cache through ``flash_mha`` (which also
 covers the JAX package's query-chunked branch for long sequences), one token
-over the cache through ``decode_mha``.  Caches are updated in place.
+over the cache through ``decode_mha`` (also over a sliding window's ring
+buffer).  Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -28,24 +29,38 @@ from repro_torch.kernels.flash_attention import flash_mha
 Params = Mapping[str, torch.Tensor]
 
 #: cached attention the port does not run yet
-_CACHED_LATER = ("ROADMAP.md Queue 1 item 14e (ring-buffer window decode, "
-                 "segments into a non-empty cache)")
+_CACHED_LATER = ("ROADMAP.md Queue 1 item 14e (a segment into a non-empty "
+                 "cache, a prompt longer than the window's ring)")
 
 
 # ---------------------------------------------------------------------------
 # initializers (normal(0, scale) from an explicit generator)
 # ---------------------------------------------------------------------------
 
+class Unfilled:
+    """Stands in for the inits' ``torch.Generator``: ``normal_init`` then
+    allocates on ``device`` and draws nothing (a tree a load overwrites)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+
+def normal_init(gen, shape, scale: float = 0.02) -> torch.Tensor:
+    """normal(0, scale) of ``shape`` on the generator's device; left
+    uninitialised where ``gen`` is ``Unfilled``."""
+    if isinstance(gen, Unfilled):
+        return torch.empty(shape, device=gen.device)
+    return scale * torch.randn(shape, generator=gen, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                scale: float = 0.02) -> torch.Tensor:
-    return scale * torch.randn((in_dim, out_dim), generator=gen,
-                               device=gen.device)
+    return normal_init(gen, (in_dim, out_dim), scale)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                scale: float = 0.02) -> torch.Tensor:
-    return scale * torch.randn((vocab, dim), generator=gen,
-                               device=gen.device)
+    return normal_init(gen, (vocab, dim), scale)
 
 
 # ---------------------------------------------------------------------------
@@ -125,11 +140,16 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
 
     positions: (B, S) absolute token positions for RoPE.  cache: {"k":
     (B, T, Hkv, D), "v": ..., "pos": (B, T)}, written in place and
-    returned; cache_pos: (B,) write offset of the first new token.  Three
-    cached cases run, as the JAX package writes them: S == T (the segment
-    fills the cache), a segment into a fresh cache (every cache_pos 0) and
-    one token without a window (decode over slots < cache_pos + 1).  The
-    others raise ``NotImplementedError``.
+    returned; cache_pos: (B,) write offset of the first new token.  T is
+    the full max length, or with a window the ring's min(window, max_len)
+    slots.  Three cached cases run, as the JAX package writes them: S == T
+    (the segment fills the cache), a segment into a fresh cache (every
+    cache_pos 0) and one token (decode).  Without a window a decode step
+    writes slot cache_pos and reads slots < cache_pos + 1; with one it
+    writes slot cache_pos % T of the ring and reads its min(cache_pos + 1,
+    T) written slots.  A ring holds only positions in (p - T, p], all
+    inside the window, so that is exactly the set the JAX package's
+    position mask keeps.  The others raise ``NotImplementedError``.
     """
     b, s, _ = x.shape
     hd = cfg.head_dim
@@ -153,14 +173,18 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
             cache["v"][:, :s] = v
             cache["pos"][:, :s] = positions
             out = flash_mha(q, k, v, causal=True, window=window)
-        elif s == 1 and window is None:
+        elif s == 1 and (window is None or t <= window):
             rows = torch.arange(b, device=x.device)
             slot = cache_pos.long()
+            if window is not None:
+                slot = slot % t
             cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
             cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
             cache["pos"][rows, slot] = positions[:, 0].to(torch.int32)
+            lengths = (cache_pos + 1 if window is None
+                       else torch.clamp(cache_pos + 1, max=t))
             out = decode_mha(q, cache["k"].to(dt), cache["v"].to(dt),
-                             cache_pos + 1)
+                             lengths)
         else:
             raise NotImplementedError(
                 f"attention over a cache of {t} slots with {s} new tokens "

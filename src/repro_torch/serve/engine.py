@@ -29,7 +29,8 @@ class ServeConfig:
 
 def sample_logits(logits: torch.Tensor, key: torch.Tensor,
                   temperature: float, top_k: int) -> torch.Tensor:
-    """logits: (B, V); returns (B,) int32 token ids."""
+    """logits: (B, V) (audio: (B, C, V)); returns int32 token ids, (B,)
+    (audio: (B, C))."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     scaled = logits.float() / temperature
@@ -55,11 +56,17 @@ class Engine:
                  n_new: Optional[int] = None, return_logits: bool = False):
         """Prefill the prompt batch and decode n_new tokens.
 
-        Returns generated ids (B, n_new) as numpy; with ``return_logits``
-        also the (B, n_new, V) logits each token was drawn from."""
+        The batch is the model family's: ``tokens`` (B, S) (audio: (B, S,
+        C) codebook frames), and for vlm ``image_embeds`` (B, P, D), the
+        prefix the prompt's cache slots start with.  Returns generated ids
+        (B, n_new) (audio: (B, n_new, C)) as numpy; with ``return_logits``
+        also the (B, n_new, V) (audio: (B, n_new, C, V)) logits each token
+        was drawn from."""
         sc = self.sc
         n_new = n_new or sc.max_new_tokens
         bsz, s = batch["tokens"].shape[:2]
+        if "image_embeds" in batch:
+            s += batch["image_embeds"].shape[1]
         if s + n_new - 1 > sc.max_len:
             raise ValueError(f"prompt {s} + {n_new} new tokens need "
                              f"{s + n_new - 1} cache slots; max_len is "

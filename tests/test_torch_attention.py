@@ -19,6 +19,7 @@ from repro.kernels.decode_attention.ref import (decode_attention_ref as
 from repro.kernels.flash_attention.ref import attention_ref as jax_flash_ref
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -55,7 +56,8 @@ def _flash_both(b, s, h, hkv, d, dtype="float32", **kw):
 
 
 @pytest.mark.parametrize("b,h,s,d", [(1, 1, 128, 32), (2, 3, 256, 64),
-                                     (1, 2, 512, 128), (1, 1, 128, 256)])
+                                     (1, 2, 512, 128), (1, 1, 128, 256),
+                                     (2, 4, 256, 112)])      # zamba2-7b's
 def test_flash_plain_matches_jax_oracle_shapes(b, h, s, d):
     _assert_close(*_flash_both(b, s, h, h, d), "float32")
 
@@ -102,7 +104,8 @@ def _decode_both(b, h, hkv, t, d, lens, dtype="float32", garbage=None):
 
 
 @pytest.mark.parametrize("b,h,t,d", [(2, 2, 256, 64), (1, 4, 1024, 128),
-                                     (3, 1, 512, 32), (1, 8, 2048, 64)])
+                                     (3, 1, 512, 32), (1, 8, 2048, 64),
+                                     (2, 4, 280, 112)])
 def test_decode_plain_matches_jax_oracle(b, h, t, d):
     lens = np.random.default_rng(0).integers(1, t, (b,))
     _assert_close(*_decode_both(b, h, h, t, d, lens), "float32")
@@ -131,6 +134,18 @@ def test_decode_plain_length_masking_exact():
     k2, v2 = k.clone(), v.clone()
     k2[:, 100:], v2[:, 100:] = 999.0, -999.0
     assert torch.equal(DA.decode_mha(q, k2, v2, lens), out1)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.float32, 64, "cuda-core"), (torch.float32, 112, "cuda-core"),
+    (torch.bfloat16, 32, "cuda-core"), (torch.bfloat16, 64, "wgmma+tma"),
+    (torch.bfloat16, 112, "cuda-core"), (torch.bfloat16, 128, "wgmma+tma"),
+    (torch.bfloat16, 256, "wgmma+tma")])
+def test_flash_design_by_dtype_and_head_dim(dtype, d, want):
+    """bf16 at head_dim 112 stays on the CUDA cores: the tensor-core
+    design's 64-column swizzle atom does not divide 112."""
+    assert d in HEAD_DIMS
+    assert FA.design(dtype, d) == want
 
 
 def test_wrappers_refuse_devices_other_than_cuda_and_cpu():

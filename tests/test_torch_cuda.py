@@ -262,7 +262,16 @@ def _close(got, want, tol=None):
     (1, 1000, 15, 5, 64, True, None, torch.float32),
     (1, 257, 4, 2, 128, False, None, torch.float32),
     (1, 257, 2, 1, 256, True, None, torch.float32),
-    (1, 333, 6, 2, 32, True, 100, torch.bfloat16)])
+    (1, 333, 6, 2, 32, True, 100, torch.bfloat16),
+    # head_dim 112 (zamba2-7b): the CUDA-core kernel in both dtypes, whose
+    # 7 output columns a thread do not make whole 16-byte chunks
+    (2, 333, 4, 4, 112, True, None, torch.float32),
+    (1, 300, 6, 2, 112, True, 100, torch.float32),
+    (1, 77, 2, 1, 112, False, 16, torch.float32),
+    (2, 256, 32, 32, 112, True, None, torch.float32),
+    (2, 333, 4, 4, 112, True, None, torch.bfloat16),
+    (1, 300, 6, 2, 112, True, 100, torch.bfloat16),
+    (2, 256, 32, 32, 112, True, None, torch.bfloat16)])
 def test_flash_kernel_matches_plain_version(b, s, h, hkv, d, causal, window,
                                             dtype):
     dev = _card()
@@ -309,6 +318,10 @@ def test_flash_bf16_one_hot_probabilities(d):
     (3, 512, 1, 1, 32, torch.float32), (1, 2048, 8, 8, 64, torch.float32),
     (2, 256, 2, 2, 64, torch.bfloat16), (2, 256, 4, 2, 64, torch.float32),
     (8, 1064, 15, 5, 64, torch.float32), (8, 1064, 15, 5, 64,
+                                          torch.bfloat16),
+    (2, 280, 32, 32, 112, torch.float32), (2, 280, 32, 32, 112,
+                                           torch.bfloat16),
+    (3, 1000, 8, 2, 112, torch.float32), (3, 1000, 8, 2, 112,
                                           torch.bfloat16)])
 def test_decode_kernel_matches_plain_version(b, t, h, hkv, d, dtype):
     dev = _card()
@@ -384,6 +397,90 @@ def test_attention_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         DA.decode_attention(q[:, 0], cache, cache,
                             torch.ones(1, dtype=torch.int32, device=dev))
+
+
+# -- the other model families on the card ----------------------------------
+
+def _card_and_cpu(cfg):
+    """The same random weights on the card and on the CPU."""
+    from repro_torch.models import build_model
+    cpu = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, device=_card(), seed=None)
+    card.load_state_dict(cpu.state_dict())
+    return card, cpu
+
+
+@pytest.mark.cuda
+def test_ring_decode_matches_plain_version():
+    """A reduced mixtral with window 8 decodes 24 tokens one at a time from
+    an empty ring: each step writes slot pos % 8 and the decode kernel reads
+    min(pos + 1, 8) slots; the CPU runs the plain versions on the same
+    weights and tokens.  Logits within 1e-4 x max(1, max |logit|)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(),
+                              sliding_window=8)
+    card, cpu = _card_and_cpu(cfg)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 24))
+    caches = [m.init_cache(2, 64, dtype=torch.float32) for m in (card, cpu)]
+    assert caches[0]["blocks"][0]["k"].shape[1] == 8
+    DA.reset_counts()
+    for t in range(24):
+        tok = torch.from_numpy(toks[:, t].astype(np.int32))
+        got, caches[0] = card.decode_step(tok.to(card.device), caches[0],
+                                          dtype=torch.float32)
+        want, caches[1] = cpu.decode_step(tok, caches[1],
+                                          dtype=torch.float32)
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-4 * scale)
+    torch.cuda.synchronize()
+    assert DA.COUNTS["decode_attention"] == 24 * cfg.n_layers
+    np.testing.assert_array_equal(caches[0]["blocks"][0]["pos"].cpu(),
+                                  caches[1]["blocks"][0]["pos"])
+
+
+@pytest.mark.cuda
+def test_moe_on_the_card_matches_the_cpu_and_reruns_bitwise():
+    """moe_apply with top-8 of 16 experts and drops: the card against the
+    CPU within 1e-5 x max(1, max |y|), the aux terms within rtol 1e-5 and
+    the drop share equal; two card runs equal bit for bit (the combine has
+    no atomics).  Then a reduced MoE model generates on the card as on the
+    CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_apply, moe_init
+    from repro_torch.serve import Engine, ServeConfig
+    dev = _card()
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
+                              n_experts=16, top_k=8, capacity_factor=0.75)
+    p = moe_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(4, 64, cfg.d_model)).astype(np.float32))
+    want, aux_cpu = moe_apply(p, x, cfg)
+    pc = {k: v.to(dev) for k, v in p.items()}
+    runs = [moe_apply(pc, x.to(dev), cfg) for _ in range(2)]
+    assert float(aux_cpu["moe_drop_frac"]) > 0
+    assert torch.equal(runs[0][0], runs[1][0])
+    got, aux = runs[0]
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * scale)
+    for k in ("moe_lb", "moe_z"):
+        np.testing.assert_allclose(float(aux[k]), float(aux_cpu[k]),
+                                   rtol=1e-5)
+    assert float(aux["moe_drop_frac"]) == float(aux_cpu["moe_drop_frac"])
+
+    card, cpu = _card_and_cpu(get_config("granite-moe-1b-a400m").reduced())
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, card.cfg.vocab_size, (2, 24)))
+    sc = ServeConfig(max_len=40, max_new_tokens=8)
+    t_card, l_card = Engine(card, sc).generate({"tokens": tok.to(dev)},
+                                               return_logits=True)
+    t_cpu, l_cpu = Engine(cpu, sc).generate({"tokens": tok},
+                                            return_logits=True)
+    np.testing.assert_array_equal(t_card, t_cpu)
+    torch.testing.assert_close(l_card.cpu(), l_cpu, rtol=0, atol=1e-4 * max(
+        1.0, float(l_cpu.abs().max())))
 
 
 # -- the pre-sampled driver, the sweep and the kernel grid on the card -------

@@ -154,26 +154,6 @@ def test_unported_paths_name_their_roadmap_item():
     assert sess.report().provenance["path"] == "cohort"
 
 
-@pytest.mark.parametrize("arch", ["musicgen-medium", "llava-next-mistral-7b",
-                                  "rwkv6-7b", "mixtral-8x7b",
-                                  "granite-moe-1b-a400m", "zamba2-7b"])
-def test_unported_archs_name_their_roadmap_item(arch):
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        get_config(arch)
-    cfg = get_config("smollm-360m").reduced()
-    kind = {"musicgen-medium": dict(family="audio"),
-            "llava-next-mistral-7b": dict(family="vlm"),
-            "rwkv6-7b": dict(block_type="rwkv6"),
-            "mixtral-8x7b": dict(family="moe", n_experts=4, top_k=2),
-            "granite-moe-1b-a400m": dict(n_experts=4, top_k=2),
-            "zamba2-7b": dict(block_type="mamba2", family="hybrid")}[arch]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        build_model(dataclasses.replace(cfg, **kind), device="cpu")
-
-
 def test_serve_launcher_runs_on_the_cpu(capsys):
     from repro_torch.launch.serve import main as serve_main
     serve_main(["--arch", "smollm-360m", "--local", "--device", "cpu",

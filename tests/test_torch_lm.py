@@ -170,6 +170,8 @@ def test_attention_apply_prefill_then_decode():
 
 
 def test_attention_apply_unported_cache_cases_raise():
+    """What is left of ROADMAP item 14e: a segment into a non-empty cache,
+    and a prompt longer than the window's ring."""
     jcfg, cfg = _cfgs()
     _, pt = _attn_params(jcfg)
     cache = L.init_attn_cache(cfg, 1, 16, dtype=torch.float32)
@@ -178,10 +180,38 @@ def test_attention_apply_unported_cache_cases_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         L.attention_apply(pt, x, cfg, pos, cache=cache,
                           cache_pos=torch.tensor([5], dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ring-buffer"):
-        L.attention_apply(pt, x[:, :1], cfg, pos[:, :1], window=8,
-                          cache=cache,
-                          cache_pos=torch.tensor([5], dtype=torch.int32))
+    ring = L.init_attn_cache(cfg, 1, 16, window=2, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="longer than the window"):
+        L.attention_apply(pt, x, cfg, pos - 5, window=2, cache=ring,
+                          cache_pos=torch.tensor([0], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("prefill", [1, 3, 4])
+def test_attention_apply_ring_decode_matches_jax(prefill):
+    """A ring of window 4 slots: a prefill of 1, 3 or 4 tokens (4 fills
+    it, through the S == T branch), then one token a step; each step
+    writes slot pos % 4 and reads the min(pos + 1, 4) written slots, the
+    JAX package's position mask over the ring."""
+    jcfg, cfg = _cfgs()
+    pj, pt = _attn_params(jcfg)
+    w, n = 4, 12
+    x = 0.5 * _rand(B, n, cfg.d_model, seed=5)
+    cj = JL.init_attn_cache(jcfg, B, 16, window=w, dtype=jnp.float32)
+    ct = L.init_attn_cache(cfg, B, 16, window=w, dtype=torch.float32)
+    pos = np.broadcast_to(np.arange(n, dtype=np.int32), (B, n)).copy()
+    spans = [(0, prefill)] + [(i, i + 1) for i in range(prefill, n)]
+    for a, e in spans:
+        cp = np.full(B, a, np.int32)
+        want, cj = JL.attention_apply(
+            pj, jnp.asarray(x[:, a:e]), jcfg, jnp.asarray(pos[:, a:e]),
+            window=w, cache=cj, cache_pos=jnp.asarray(cp))
+        got, ct = L.attention_apply(
+            pt, torch.from_numpy(x[:, a:e].copy()), cfg,
+            torch.from_numpy(pos[:, a:e].copy()), window=w, cache=ct,
+            cache_pos=torch.from_numpy(cp))
+        _close(got, want)
+    assert ct["k"].shape[1] == w
+    np.testing.assert_array_equal(ct["pos"].numpy(), np.asarray(cj["pos"]))
 
 
 # ---------------------------------------------------------------------------
@@ -262,10 +292,11 @@ def test_engine_refuses_a_cache_too_small(smollm):
                                                         n_new=4)
 
 
+@pytest.mark.parametrize("shape", [(8, 512), (4, 4, 512)])  # audio: (B, C, V)
 @pytest.mark.parametrize("temperature,top_k", [(0.0, 0), (1.0, 0), (0.7, 5),
                                                (1.3, 50)])
-def test_sample_logits_token_equal_to_jax(temperature, top_k):
-    logits = 3.0 * _rand(8, 512, seed=5)
+def test_sample_logits_token_equal_to_jax(temperature, top_k, shape):
+    logits = 3.0 * _rand(*shape, seed=5)
     for seed in range(3):
         want = jax_sample_logits(jnp.asarray(logits),
                                  jax.random.PRNGKey(seed), temperature, top_k)

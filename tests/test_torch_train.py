@@ -1,15 +1,15 @@
 """The port's LM training against the JAX package's, on the CPU.
 
-Mirrors ``tests/test_train.py``'s optimizer, schedule, loss-decrease and
-token-stream tests on the port (its checkpoint tests are in
-``tests/test_torch_checkpoint.py``; the MoE auxiliary-loss test waits for
-the MoE family, ROADMAP.md Queue 1 item 14d) and holds the port against
-the JAX package on the same inputs:
+Mirrors ``tests/test_train.py``'s optimizer, schedule, loss-decrease,
+MoE auxiliary-loss and token-stream tests on the port (its checkpoint
+tests are in ``tests/test_torch_checkpoint.py``) and holds the port
+against the JAX package on the same inputs:
 
   * ``TokenStream`` batches equal bit for bit (dense, audio and vlm
     layouts);
-  * ``next_token_loss`` on random logits: rtol 1e-6 (a float32 logsumexp
-    and mean in another order);
+  * ``next_token_loss`` on random logits, dense, vlm (text positions only)
+    and audio (codebooks summed): rtol 1e-6 (a float32 logsumexp and mean
+    in another order);
   * ``AdamW`` (with clipping, a schedule, and bf16 parameters under f32
     masters) and ``SGD`` over several steps of the same gradients: rtol
     1e-6 / atol 1e-7 (the same float32 arithmetic; XLA may contract a
@@ -215,12 +215,34 @@ def test_next_token_loss_matches_jax(dtype):
     assert float(tt) == pytest.approx(float(tm["ce"]) + 0.375, rel=1e-6)
 
 
-def test_next_token_loss_other_families_raise():
-    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
-                              family="audio", n_codebooks=2)
-    with pytest.raises(NotImplementedError, match="item 14d"):
-        next_token_loss(cfg, torch.zeros(1, 3, 2, 8),
-                        {"tokens": np.zeros((1, 3, 2), np.int32)}, {})
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b",
+                                  "musicgen-medium"])
+def test_next_token_loss_vlm_and_audio_match_jax(arch):
+    """The vlm and audio losses against the JAX package's: vlm over the
+    text positions after the image prefix, audio the codebooks' CE
+    summed."""
+    rng = np.random.default_rng(1)
+    cfg = get_config(arch).reduced()
+    jcfg = jax_get_config(arch).reduced()
+    if cfg.family == "audio":
+        toks = rng.integers(0, cfg.vocab_size, (2, 9, cfg.n_codebooks))
+        shape = (2, 9, cfg.n_codebooks, cfg.vocab_size)
+    else:
+        toks = rng.integers(0, cfg.vocab_size, (2, 9))
+        shape = (2, cfg.frontend_tokens + 9, cfg.vocab_size)
+    toks = toks.astype(np.int32)
+    logits = (3 * rng.normal(size=shape)).astype(np.float32)
+    aux = {"moe_lb": 0.25}
+    jt, jm = jax_next_token_loss(jcfg, jnp.asarray(logits),
+                                 {"tokens": jnp.asarray(toks)},
+                                 {k: jnp.float32(v) for k, v in aux.items()})
+    tt, tm = next_token_loss(cfg, _t(logits), {"tokens": toks},
+                             {k: torch.tensor(v) for k, v in aux.items()})
+    assert set(tm) == set(jm)
+    for k in jm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-6,
+                                   err_msg=k)
+    np.testing.assert_allclose(float(tt), float(jt), rtol=1e-6)
 
 
 def _trees(rng, bf16=False):
@@ -390,6 +412,33 @@ def test_train_step_matches_jax(jax_and_port_models):
         steep = np.abs(np.asarray(g)) < 1e-5
         assert diff[~steep].max(initial=0) <= 1e-3 * tc.lr
         assert diff[steep].max(initial=0) <= 2 * tc.lr
+
+
+def test_train_step_moe_aux_losses_match_jax():
+    """The counterpart of ``tests/test_train.py::
+    test_train_step_moe_aux_losses_present``: one step of the reduced
+    granite-moe on the same weights and batch; ``ce``, ``loss``,
+    ``moe_lb``, ``moe_z`` and ``grad_norm`` within rtol 1e-5 of the JAX
+    step's, ``moe_drop_frac`` equal (the same assignments dropped), and
+    ``moe_lb`` > 0."""
+    jcfg = jax_get_config("granite-moe-1b-a400m").reduced()
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    jm = jax_build_model(jcfg)
+    jtc, tc = jloop.TrainConfig(), TrainConfig()
+    jparams, jopt = jloop.init_train_state(jm, jtc, jax.random.PRNGKey(0))
+    model = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                 cfg, device="cpu")
+    batch = next(TokenStream(cfg, DataConfig(seq_len=32,
+                                             batch_size=4)).batches(1))
+    _, _, jmetrics = jloop.make_train_step(jm, jtc)(
+        jparams, jopt, {k: jnp.asarray(v) for k, v in batch.items()})
+    params, opt_state = init_train_state(model, tc)
+    _, _, metrics = make_train_step(model, tc)(params, opt_state, batch)
+    assert float(metrics["moe_lb"]) > 0.0
+    for k in ("ce", "loss", "moe_lb", "moe_z", "grad_norm"):
+        np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]),
+                                   rtol=1e-5, err_msg=k)
+    assert float(metrics["moe_drop_frac"]) == float(jmetrics["moe_drop_frac"])
 
 
 def test_launch_train_runs_on_the_cpu(capsys, tmp_path):
