@@ -269,7 +269,8 @@ def phase_build():
     """Build the three sources; print nvcc's log and, for the SDCA kernel,
     the CUDA-core and tensor-core flash kernels and the split and merge
     decode kernels, registers, spills and the dynamic shared memory a block
-    asks for."""
+    asks for.  Fails if the bf16 flash kernel at head_dim 112 (zamba2-7b's
+    tensor-core instance) spills."""
     import importlib
     from repro_torch.kernels import build
     FA, DA, SD = (importlib.import_module(f"repro_torch.kernels.{n}.{n}")
@@ -284,7 +285,15 @@ def phase_build():
     flash = build.load("flash_attention", FA._bind)
     decode = build.load("decode_attention", DA._bind)
     sdca = build.load("sdca", SD._bind)
-    for fn, r in ptxas_summary(log).items():
+    summary = ptxas_summary(log)
+    wgmma112 = [r for fn, r in summary.items()
+                if "flash_wgmma_kernelILi112E" in fn]
+    if "nvcc flash_attention.cu" in log and not (
+            wgmma112 and wgmma112[0]["spill_stores"] == 0
+            and wgmma112[0]["spill_loads"] == 0):
+        raise AssertionError(f"the bf16 flash kernel at head_dim 112 is not "
+                             f"built or spills: {wgmma112}")
+    for fn, r in summary.items():
         if "sdca_kernel" in fn:
             from repro_torch.core.subproblem import _solver_plan
             from repro_torch.data.synthetic import (HUMAN_ACTIVITY,
@@ -1715,7 +1724,9 @@ def check_attention(name, label, case, plain=None):
     err = float(diff.max())
     share = float((diff / _tolerance(name, case, ref)).max())
     ok = out.dtype == ref.dtype and share <= 1.0
-    print(f"{name} kernel vs plain [{label}]: max_abs_err={err:.3e}, largest "
+    kind = design(name, case["q"].dtype, case["q"].shape[-1])
+    print(f"{name} kernel ({kind}) vs plain [{label}]: max_abs_err="
+          f"{err:.3e}, largest "
           f"share of the tolerance {_rule(name, ref.dtype)}: {share:.3f} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
@@ -1785,7 +1796,7 @@ def phase_attention_kernels():
     run("flash", "bf16 d256 non-causal window 64",
         flash_case(1, 384, 2, 1, 256, bf16, causal=False, window=64))
     run("flash", "bf16 d64 ragged S 77", flash_case(1, 77, 2, 1, 64, bf16))
-    for d in (64, 128, 256):
+    for d in (64, 112, 128, 256):
         case, want = one_hot_case(d)
         got = _attn_kernel("flash", case)
         err = float((got.float() - want.float()).abs().max())
@@ -1823,9 +1834,15 @@ def phase_attention_kernels():
             f"{str(dt)[6:]}", case, decode_attention_split_ref(
                 case["q"][:, 0], case["k"], case["v"], case["lengths"],
                 chunk)[:, None])
-    # head_dim 112 (zamba2-7b's shared attention, 32/32 heads): the
-    # CUDA-core flash kernel in f32 and bf16, ragged S, causal, with and
-    # without a window, GQA; decode over ragged lengths
+    # head_dim 112 (zamba2-7b's shared attention, 32/32 heads): flash on
+    # the CUDA cores in f32 and on the tensor cores in bf16, ragged S,
+    # causal, with and without a window, GQA, and in bf16 one head (a store
+    # past column 112 would land on the next row); decode over ragged
+    # lengths
+    run("flash", "d112 ragged S 333 H4/4 non-causal window 16 bfloat16",
+        flash_case(1, 333, 4, 4, 112, bf16, causal=False, window=16))
+    run("flash", "d112 B2 S300 H1/1 bfloat16", flash_case(2, 300, 1, 1, 112,
+                                                           bf16))
     for dt in (f32, bf16):
         n = str(dt)[6:]
         run("flash", f"d112 ragged S 333 H4/4 causal {n}",
@@ -2085,22 +2102,42 @@ def _device_ms_per_call(fn, cases, reps, keys):
 
 #: the shapes each attention kernel is timed at: (label, B, S of flash, T
 #: of decode and its lengths' range, H, Hkv, D, copies of a flash and a
-#: decode case cycled through, more bytes than the 50 MB L2 holds)
+#: decode case cycled through, more bytes than the 50 MB L2 holds, repeats
+#: of kernel and SDPA in turns, their median kept: at zamba2's small shape
+#: SDPA's time moves by half from call to call)
 TIMING_SHAPES = {
     "smollm": ("SmolLM-360M one layer", BATCH, PROMPT, MAX_LEN,
-               (PROMPT, MAX_LEN - 8), 15, 5, 64, 2, 5),
+               (PROMPT, MAX_LEN - 8), 15, 5, 64, 2, 5, 1),
     "zamba2": ("zamba2-7b shared attention", 2, 256, 280, (256, 272), 32,
-               32, 112, 4, 5)}
+               32, 112, 4, 5, 5)}
+
+
+def _median_of_turns(fns, repeats):
+    """Each of ``fns`` (returning ms) run ``repeats`` times in turns, the
+    order reversed on odd repeats so that neither side always goes first;
+    per function its median and the readings."""
+    got = [[] for _ in fns]
+    for rep in range(repeats):
+        turn = list(zip(got, fns))
+        for reads, fn in (turn[::-1] if rep % 2 else turn):
+            reads.append(fn())
+    return [(float(np.median(r)), r) for r in got]
+
+
+def _spread(reads):
+    return (f" (median of {len(reads)} in turns with SDPA, "
+            f"{min(reads):.4f}-{max(reads):.4f})" if len(reads) > 1 else "")
 
 
 def phase_attention_timing(errs):
     """Each attention kernel at the main path's shapes (SmolLM-360M) and at
     zamba2-7b's head_dim 112: kernel, plain version and SDPA per call by
-    CUDA events, and the bound.  Rows keyed (kernel, dtype) for SmolLM,
+    CUDA events (at zamba2 the median of 5 repeats, kernel and SDPA in
+    turns), and the bound.  Rows keyed (kernel, dtype) for SmolLM,
     (kernel, dtype, "zamba2") for zamba2."""
     rows = {}
     for shape, (label, bb, ss, tt, lrange, hh, hkv, dd, n_flash,
-                n_decode) in TIMING_SHAPES.items():
+                n_decode, repeats) in TIMING_SHAPES.items():
         lens = np.random.default_rng(2).integers(*lrange, bb).tolist()
         for dtype in (torch.float32, torch.bfloat16):
             name_dt = str(dtype)[6:]
@@ -2113,16 +2150,18 @@ def phase_attention_timing(errs):
                                        seed=10 * i)
                 cases = [make(i) for i in range(n_copies)]
                 kernel = lambda c, name=name: _attn_kernel(name, c)  # noqa
-                ms = _rotating_ms(kernel, cases, 50)
+                sdpa = lambda c, name=name: _sdpa(name, c)  # noqa
+                (ms, ms_reads), (lib_ms, lib_reads) = _median_of_turns(
+                    (lambda: _rotating_ms(kernel, cases, 50),
+                     lambda: _rotating_ms(sdpa, cases, 50)), repeats)
                 plain_ms = _rotating_ms(
                     lambda c, name=name: _attn_plain(name, c), cases, 5)
-                lib_ms = _rotating_ms(lambda c, name=name: _sdpa(name, c),
-                                      cases, 50)
                 host_ms = _host_ms(kernel, cases, 50)
                 device_ms = _device_ms_per_call(kernel, cases, 50,
                                                 _PROFILE_KERNELS[name])
                 b = attention_bound(name, cases[0])
                 row = dict(design=design(name, dtype, dd), ms=ms,
+                           ms_reads=ms_reads, library_ms_reads=lib_reads,
                            plain_ms=plain_ms, library_ms=lib_ms,
                            host_ms=host_ms, device_ms=device_ms,
                            max_abs_err=errs[(name, dtype)],
@@ -2134,8 +2173,9 @@ def phase_attention_timing(errs):
                 rows[key] = row
                 print(f"timing [{name} {name_dt} ({row['design']}), {label}"
                       f"{', lengths ' + str(lens) if name == 'decode' else ''}"
-                      f"]: kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms, "
-                      f"SDPA {lib_ms:.4f} ms, bound {b['bound_ms']:.5f} ms "
+                      f"]: kernel {ms:.4f} ms/call{_spread(ms_reads)}, "
+                      f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms"
+                      f"{_spread(lib_reads)}, bound {b['bound_ms']:.5f} ms "
                       f"({b['bound_by']}; {b['bytes'] / 1e6:.2f} MB, "
                       f"{b['flops'] / 1e9:.3f} GFLOP), kernel at "
                       f"{100 * row['share_of_bound']:.1f}% of the bound; "

@@ -6,9 +6,10 @@ GQA wrapper: q (B, S, H, D) and k, v (B, S, Hkv, D), read in place.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version (``ref.attention_ref``).  bf16 at head_dim 64,
-128 and 256 runs on the tensor cores (wgmma fed by TMA); f32, and bf16 at
-head_dim 32 and 112, on the CUDA cores (``design``).  Each launch adds one to
-``COUNTS["flash_attention"]``.
+112, 128 and 256 runs on the tensor cores (wgmma fed by TMA; at 112 the
+rows are padded to two 64-column swizzle atoms in shared memory by TMA's
+zero fill); f32, and bf16 at head_dim 32, on the CUDA cores (``design``).
+Each launch adds one to ``COUNTS["flash_attention"]``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ COUNTS = {"flash_attention": 0}
 HEAD_DIMS = (32, 64, 112, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims of the bf16 tensor-core kernel
-WGMMA_HEAD_DIMS = (64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 112, 128, 256)
 
 
 def design(dtype: torch.dtype, head_dim: int) -> str:

@@ -53,7 +53,12 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The kernel reads kv head h // (H // Hkv) for query head h in place, so
     nothing is repeated or transposed; strided inputs are made contiguous.
-    Differentiable in q, k and v (see the module docstring).
+    Differentiable in q, k and v (see the module docstring); where none of
+    them needs a gradient the wrapper is called without autograd's Function,
+    which costs the host about as long as the kernel takes at small shapes.
     """
-    return _FlashMHA.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal, window)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if not (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return flash_attention(q, k, v, causal=causal, window=window)
+    return _FlashMHA.apply(q, k, v, causal, window)

@@ -100,10 +100,15 @@ class Predictor:
             self._version = snap.version
         return self._device
 
-    def _answer(self, snap, fn, ids, *args) -> np.ndarray:  # worker: serve
-        ids = check_ids(ids, snap.m).astype(np.int32)
+    def _answer(self, fn, ids, *args) -> np.ndarray:  # worker: serve
+        """``fn`` of the newest snapshot, taken once ``CAPTURE_LOCK`` is
+        held: a read that waits for a capture answers from what was
+        published meanwhile, so its lag counts only the publishes that
+        finish while the answer is computed."""
         dev = self.device
         with CAPTURE_LOCK:
+            snap = self._store.current()
+            ids = check_ids(ids, snap.m).astype(np.int32)
             arrays = self._arrays(snap)
             out = fn(*arrays, torch.from_numpy(ids).to(dev),
                      *(torch.from_numpy(a).to(dev) for a in args))
@@ -118,11 +123,11 @@ class Predictor:
 
     def lookup(self, ids) -> np.ndarray:  # worker: serve
         """(B, d) served weights for ``ids`` under the newest snapshot."""
-        return self._answer(self._store.current(), _lookup, ids)
+        return self._answer(_lookup, ids)
 
     def predict(self, ids, X) -> np.ndarray:  # worker: serve
         """(B,) decision margins ``<w_id, x>`` for per-client features X."""
-        return self._answer(self._store.current(), _margins, ids,
+        return self._answer(_margins, ids,
                             np.ascontiguousarray(X, np.float32))
 
     @property

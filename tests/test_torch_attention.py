@@ -139,11 +139,12 @@ def test_decode_plain_length_masking_exact():
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.float32, 64, "cuda-core"), (torch.float32, 112, "cuda-core"),
     (torch.bfloat16, 32, "cuda-core"), (torch.bfloat16, 64, "wgmma+tma"),
-    (torch.bfloat16, 112, "cuda-core"), (torch.bfloat16, 128, "wgmma+tma"),
+    (torch.bfloat16, 112, "wgmma+tma"), (torch.bfloat16, 128, "wgmma+tma"),
     (torch.bfloat16, 256, "wgmma+tma")])
 def test_flash_design_by_dtype_and_head_dim(dtype, d, want):
-    """bf16 at head_dim 112 stays on the CUDA cores: the tensor-core
-    design's 64-column swizzle atom does not divide 112."""
+    """bf16 runs on the tensor cores at every head_dim but 32, 112
+    included (its rows padded to two 64-column swizzle atoms in shared
+    memory); f32 stays on the CUDA cores."""
     assert d in HEAD_DIMS
     assert FA.design(dtype, d) == want
 

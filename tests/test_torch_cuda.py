@@ -263,15 +263,20 @@ def _close(got, want, tol=None):
     (1, 257, 4, 2, 128, False, None, torch.float32),
     (1, 257, 2, 1, 256, True, None, torch.float32),
     (1, 333, 6, 2, 32, True, 100, torch.bfloat16),
-    # head_dim 112 (zamba2-7b): the CUDA-core kernel in both dtypes, whose
-    # 7 output columns a thread do not make whole 16-byte chunks
+    # head_dim 112 (zamba2-7b): f32 on the CUDA cores (7 columns a lane in
+    # two 16-byte chunks, the last one ragged; K's rows swizzled), bf16 on
+    # the tensor cores (rows padded to 128 columns by TMA's zero fill); a
+    # ragged S and, at H 1, a store past column 112 would land on the next
+    # row
     (2, 333, 4, 4, 112, True, None, torch.float32),
     (1, 300, 6, 2, 112, True, 100, torch.float32),
     (1, 77, 2, 1, 112, False, 16, torch.float32),
     (2, 256, 32, 32, 112, True, None, torch.float32),
     (2, 333, 4, 4, 112, True, None, torch.bfloat16),
     (1, 300, 6, 2, 112, True, 100, torch.bfloat16),
-    (2, 256, 32, 32, 112, True, None, torch.bfloat16)])
+    (2, 256, 32, 32, 112, True, None, torch.bfloat16),
+    (1, 333, 4, 4, 112, False, 16, torch.bfloat16),
+    (2, 300, 1, 1, 112, True, None, torch.bfloat16)])
 def test_flash_kernel_matches_plain_version(b, s, h, hkv, d, causal, window,
                                             dtype):
     dev = _card()
@@ -288,7 +293,7 @@ def test_flash_kernel_matches_plain_version(b, s, h, hkv, d, causal, window,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 112, 128, 256])
 def test_flash_bf16_one_hot_probabilities(d):
     """Each query row's score for one key (a permutation of the rows) is far
     above the rest, so P is one-hot and the output is that key's v row: a
@@ -817,6 +822,8 @@ def test_experiment_serve_on_the_card_equals_run(engine, overlap):
     assert RoundProgram.captures - before == (engine == "local")
     assert K.COUNTS["sdca_local_solve"] == (8 if engine == "kernel" else 0)
     _same_cohort_bits(ref.result, res)
+    print(f"serve {engine} overlap {overlap}: max_version_lag "
+          f"{sess.predictor.max_version_lag}")
     assert sess.snapshot_version == 8 and sess.predictor.max_version_lag <= 1
     for z, snap in reads:
         if snap is not None:

@@ -153,6 +153,58 @@ def test_predictor_matches_host_lookup(trained):
         pred.predict([state.m], X[:1])
 
 
+def test_lookup_waiting_for_capture_lock_reads_the_newest_snapshot(
+        trained, monkeypatch):
+    """A lookup that waits for ``CAPTURE_LOCK`` (held by a capture or the
+    pack thread's copies) while two snapshots are published answers under
+    the newest one: the publishes that finish before it holds the lock are
+    no lag, as in the JAX predictor, which takes no lock."""
+    import repro_torch.serve.predict as predict_mod
+
+    state = trained[1].relationship
+    store = SnapshotStore()
+    store.publish(ServedSnapshot.from_state(state, version=0))
+    pred = Predictor(store, device="cpu")
+    ids = np.arange(state.m)
+    pred.lookup(ids)          # warmed on version 0
+    lock = predict_mod.CAPTURE_LOCK
+    waiting = threading.Event()
+
+    class Announced:
+        """CAPTURE_LOCK, announcing a thread that is about to wait on it."""
+
+        def __enter__(self):
+            waiting.set()
+            lock.acquire()
+
+        def __exit__(self, *exc):
+            lock.release()
+
+    monkeypatch.setattr(predict_mod, "CAPTURE_LOCK", Announced())
+    got = []
+    held, release = threading.Event(), threading.Event()
+
+    def holder():             # a capture holding the lock
+        with lock:
+            held.set()
+            release.wait(JOIN_S)
+
+    h = threading.Thread(target=holder)
+    h.start()
+    assert held.wait(JOIN_S)
+    r = threading.Thread(target=lambda: got.append(pred.lookup(ids)))
+    r.start()
+    assert waiting.wait(JOIN_S)
+    store.publish(ServedSnapshot.from_state(state, version=1))
+    store.publish(ServedSnapshot.from_state(state, version=2))
+    release.set()
+    h.join(JOIN_S)
+    r.join(JOIN_S)
+    assert not h.is_alive() and not r.is_alive()
+    assert pred.snapshot_version == 2 and pred.max_version_lag == 0
+    np.testing.assert_array_equal(got[0], _inline_rule(state, ids))
+
+
 def test_serve_session_prewarm_serves_cold_centroids():
     """Predictions are answerable BEFORE any training block folds: the
     version-0 snapshot is the deterministic cold state."""
