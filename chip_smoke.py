@@ -108,7 +108,12 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    MoE families' plain route takes the kernel route's expert choices;
    its own are reported), greedy tokens equal in f32; mixtral's decode
    steps past the ring's end against the windowed full-sequence forward
-   over the same 4112 tokens; the card freed between families;
+   over the same 4112 tokens; the card freed between families; then the
+   launch plan (``phase_dryrun``): ``repro_torch.launch.dryrun`` over 10
+   archs x 4 shapes x both production meshes against the card's memory,
+   per-device GiB by part, and every case that fits the free memory
+   allocated as rank 0's shards, the allocator's requested bytes equal
+   to the plan's argument bytes exactly;
 8. time the SDCA kernel (CUDA events over many launches) beside its bound
    and its chain floor (a model printed on the timing line: chain steps x
    one dependent step counted from the kernel's instructions at assumed
@@ -3168,6 +3173,94 @@ def phase_families():
     return out
 
 
+DRYRUN_BUDGET_S = 60.0
+
+
+def phase_dryrun():
+    """The launch plan (``repro_torch.launch.dryrun``) for the whole matrix,
+    10 archs x 4 shapes x both production meshes, against this card's
+    memory: (a) every record ok, one line per arch and mesh with the
+    per-device GiB by part and the cases whose arguments fit the card;
+    (b) for every case whose argument bytes fit the card's free memory,
+    rank 0's shards of every params, optimizer, batch and cache leaf
+    allocated on the card (``torch.empty`` of ``local_shape`` in the
+    plan's dtype): the allocator's requested bytes must grow by the plan's
+    argument bytes exactly, then they are freed; (c) the phase's wall,
+    within ``DRYRUN_BUDGET_S``.  Records land in results/dryrun_torch/."""
+    import io
+    from repro_torch.configs.archs import ALL_ARCHS
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun, sharding as sh
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import build_case
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    gib = 2 ** 30
+    records = {}
+    for multi_pod in (False, True):
+        for arch in ALL_ARCHS:
+            for shape in SHAPES:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rec = dryrun.run_case(arch, shape, multi_pod,
+                                          force=True, device="cuda")
+                if rec["status"] != "ok":
+                    raise AssertionError(f"dry-run {arch} {shape}: "
+                                         f"{rec['error']}")
+                records[(arch, shape, multi_pod)] = rec
+    plan_s = time.perf_counter() - t0
+    for multi_pod in (False, True):
+        for arch in ALL_ARCHS:
+            recs = [records[(arch, s, multi_pod)] for s in SHAPES]
+            cells = []
+            for shape, rec in zip(SHAPES, recs):
+                m = rec["memory"]
+                cells.append(f"{shape} {m['argument_bytes'] / gib:.3f} ("
+                             + " ".join(f"{p[0]} {m[p + '_bytes'] / gib:.3f}"
+                                        for p in ("params", "optimizer",
+                                                  "batch", "cache")) + ")")
+            fit = sum(bool(r["fits_arguments"]) for r in recs)
+            print(f"dryrun {arch} {recs[0]['mesh']}: GiB/device "
+                  + "; ".join(cells) + f"; fit {fit}/{len(recs)}")
+    allocated, skipped = 0, []
+    t_alloc = time.perf_counter()
+    for (arch, shape, multi_pod), rec in records.items():
+        want = rec["memory"]["argument_bytes"]
+        if want > free:
+            skipped.append(f"{arch}/{shape}/{rec['mesh']}")
+            continue
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        case = build_case(arch, shape, mesh)
+        before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        held = [torch.empty(sh.local_shape(t.shape, spec, mesh),
+                            dtype=t.dtype, device="cuda")
+                for tree, specs in zip(case["args"], case["in_specs"])
+                for _, t, spec in sh.leaves_with_specs(tree, specs)]
+        grown = (torch.cuda.memory_stats()["requested_bytes.all.current"]
+                 - before)
+        del held
+        if grown != want:
+            raise AssertionError(f"dry-run {arch} {shape} {rec['mesh']}: "
+                                 f"allocated {grown} B, the plan {want} B")
+        allocated += 1
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"dryrun: {len(records)} records ok, plan {plan_s:.2f} s; "
+          f"{allocated} cases allocated exactly the plan's bytes "
+          f"({time.perf_counter() - t_alloc:.2f} s; free {free / gib:.2f} "
+          f"of {total / gib:.2f} GiB), over the free memory: "
+          f"{skipped or 'none'}; phase {wall:.2f} s (budget "
+          f"{DRYRUN_BUDGET_S:.0f} s)", flush=True)
+    if wall > DRYRUN_BUDGET_S:
+        raise AssertionError(f"dry-run phase {wall:.1f} s over its budget")
+    return dict(records=len(records), allocated=allocated, skipped=skipped,
+                plan_s=plan_s, wall_s=wall, free_bytes=free,
+                device_memory_bytes=records[(ALL_ARCHS[0], "train_4k",
+                                             False)]["device_memory_bytes"],
+                max_argument_bytes=max(r["memory"]["argument_bytes"]
+                                       for r in records.values()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3193,6 +3286,7 @@ def main() -> int:
     pers = phase_personalize()
     train = phase_train()
     families = phase_families()
+    dry = phase_dryrun()
     shapes = phase_timing(main_runs, errs)
     phase_profile(main_runs)
     attn = phase_attention_timing(attn_errs)
@@ -3255,6 +3349,7 @@ def main() -> int:
     print(json.dumps({"personalize": pers}))
     print(json.dumps({"train": train}))
     print(json.dumps({"families": families["runs"]}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

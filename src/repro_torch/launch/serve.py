@@ -3,13 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --local --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --dry-run [--multi-pod] [--shape decode_32k] --device cpu
 
 ``--arch`` is any of ``configs.archs.ALL_ARCHS``.  Runs on the card unless
 ``--device cpu``, in float32 (the engine's default); weights and prompts
 are random from seed 0 (audio: codebook frames; vlm: text after
-``frontend_tokens`` random image embeddings).  The JAX launcher's
-``--dry-run`` (an XLA compile of the production mesh) has no counterpart
-here.
+``frontend_tokens`` random image embeddings).  ``--dry-run`` writes the
+plan of ``--shape`` on the production mesh (``--multi-pod``: two pods)
+through ``launch.dryrun.run_case``, held against the card's memory unless
+``--device cpu``.
 """
 import argparse
 
@@ -28,11 +31,21 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--dry-run", action="store_true",
-                    help="not ported: the JAX launcher's XLA compile of the "
-                         "production mesh has no counterpart here")
+                    help="write the plan of --shape on the production mesh")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the dry-run's two-pod mesh")
+    ap.add_argument("--shape", default="decode_32k")
+    ap.add_argument("--out", default=None,
+                    help="the dry-run's record directory")
     args = ap.parse_args(argv)
     if args.dry_run:
-        ap.error("--dry-run is XLA's own and is not ported")
+        from repro_torch.launch.dryrun import RESULTS_DIR, run_case
+        rec = run_case(args.arch, args.shape, args.multi_pod,
+                       args.out or RESULTS_DIR, force=True,
+                       device=args.device)
+        raise SystemExit(0 if rec["status"] == "ok" else 1)
+    if args.multi_pod:
+        ap.error("--multi-pod goes with --dry-run")
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model

@@ -4,14 +4,18 @@
         --local --device cpu --steps 5 --seq 32 --batch 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --steps 20 --seq 512 --batch 4 --ckpt ckpt/smollm
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
+        --dry-run [--multi-pod] [--shape train_4k] --device cpu
 
 ``--arch`` is any of ``configs.archs.ALL_ARCHS``.  Runs on the card
 unless ``--device cpu``, in float32; weights are random from seed 0 and
 batches come from ``data.tokens.TokenStream`` (the family's layout: audio
 codebook frames, vlm text after image embeddings).  ``--ckpt``
-saves the trained parameters through ``train.checkpoint``.  The JAX
-launcher's ``--dry-run`` and ``--multi-pod`` (XLA compiles of the
-production mesh) have no counterpart here (ROADMAP.md Queue 1 item 15).
+saves the trained parameters through ``train.checkpoint``.
+``--dry-run`` writes the plan of ``--shape`` on the production mesh
+(``--multi-pod``: two pods) through ``launch.dryrun.run_case``, held
+against the card's memory unless ``--device cpu``; the step on the mesh
+itself waits for ROADMAP.md item 22.
 """
 import argparse
 
@@ -26,14 +30,22 @@ def main(argv=None) -> None:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--ckpt", default="")
-    for flag in ("--dry-run", "--multi-pod"):
-        ap.add_argument(flag, action="store_true",
-                        help="not ported: XLA's own (ROADMAP.md Queue 1 "
-                             "item 15)")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="write the plan of --shape on the production mesh")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the dry-run's two-pod mesh")
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--out", default=None,
+                    help="the dry-run's record directory")
     args = ap.parse_args(argv)
-    if args.dry_run or args.multi_pod:
-        ap.error("--dry-run and --multi-pod are XLA's own and are not "
-                 "ported (ROADMAP.md Queue 1 item 15)")
+    if args.dry_run:
+        from repro_torch.launch.dryrun import RESULTS_DIR, run_case
+        rec = run_case(args.arch, args.shape, args.multi_pod,
+                       args.out or RESULTS_DIR, force=True,
+                       device=args.device)
+        raise SystemExit(0 if rec["status"] == "ok" else 1)
+    if args.multi_pod:
+        ap.error("--multi-pod goes with --dry-run")
 
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import DataConfig, TokenStream

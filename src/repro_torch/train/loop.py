@@ -10,8 +10,9 @@ pass recomputes the plain attention (``kernels.flash_attention.ops``), as
 the JAX package trains through plain attention under ``jax.checkpoint``.
 
 The JAX package's ``param_specs`` (the pjit pin of the bf16 weights to
-their masters' sharding) has no counterpart until the port has a sharded
-launcher (ROADMAP.md Queue 1 item 15); ``ArchConfig.remat`` is not read
+their masters' sharding) has no counterpart until the port runs its step
+on a mesh (ROADMAP.md item 22; the plan is ``launch.sharding``);
+``ArchConfig.remat`` is not read
 (activations are kept, one layer's attention scores are recomputed).
 """
 from __future__ import annotations

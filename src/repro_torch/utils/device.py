@@ -1,4 +1,5 @@
-"""Device resolution: the card by default, the CPU only when asked."""
+"""Device resolution: the card by default, the CPU (or ``meta``) only when
+asked."""
 from __future__ import annotations
 
 from typing import Union
@@ -14,6 +15,9 @@ def resolve_device(device: Union[str, torch.device, None] = None
 
     ``None`` means ``"cuda"``.  Raises when CUDA is asked for (or defaulted
     to) and absent: a run never moves to the CPU unless the caller said so.
+    ``"meta"`` (never a default) gives tensors with shapes and dtypes and no
+    storage: the abstract trees of ``launch.specs``, as ``jax.eval_shape``
+    gives the JAX package's.
     On the card, float32 matrix products are held to full float32 (TF32
     off), which the port's parity tolerances assume.
     """
@@ -24,6 +28,7 @@ def resolve_device(device: Union[str, torch.device, None] = None
                 "CUDA is not available; pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda', 'cpu' or "
+                         f"'meta'")
     return dev

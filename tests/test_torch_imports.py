@@ -34,7 +34,9 @@ for sub in ("configs.smollm_360m", "models.layers", "models.transformer",
             "train.optimizer", "train.loop", "launch.train",
             "examples.personalize", "examples.serve_cohort",
             "examples.train_lm", "examples.sharded", "federated",
-            "federated.runtime", "federated.sharding", "utils.dist"):
+            "federated.runtime", "federated.sharding", "utils.dist",
+            "configs.shapes", "launch.mesh", "launch.sharding",
+            "launch.specs", "launch.roofline", "launch.dryrun"):
     assert "repro_torch." + sub in names, sub
 print(len(names))
 """
@@ -154,13 +156,17 @@ def test_unported_paths_name_their_roadmap_item():
     assert sess.report().provenance["path"] == "cohort"
 
 
-def test_serve_launcher_runs_on_the_cpu(capsys):
+def test_serve_launcher_runs_on_the_cpu(capsys, tmp_path):
     from repro_torch.launch.serve import main as serve_main
     serve_main(["--arch", "smollm-360m", "--local", "--device", "cpu",
                 "--batch", "2", "--prompt-len", "5", "--new-tokens", "3"])
     assert "generated: (2, 3)" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        serve_main(["--arch", "smollm-360m", "--dry-run"])
+    with pytest.raises(SystemExit) as exc:   # the plan, written on the CPU
+        serve_main(["--arch", "smollm-360m", "--dry-run", "--device", "cpu",
+                    "--out", str(tmp_path)])
+    assert exc.value.code == 0
+    assert [p.name for p in tmp_path.iterdir()] == [
+        "smollm-360m__decode_32k__pod16x16.json"]
 
 
 def test_chip_smoke_refuses_without_card_or_package(tmp_path):

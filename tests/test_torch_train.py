@@ -450,6 +450,11 @@ def test_launch_train_runs_on_the_cpu(capsys, tmp_path):
     out = capsys.readouterr().out
     assert "step    2 loss=" in out and "saved:" in out
     assert latest_step(str(tmp_path)) == 3
-    for flag in ("--dry-run", "--multi-pod"):
-        with pytest.raises(SystemExit):
-            train_main(["--arch", "smollm-360m", flag])
+    for extra in ([], ["--multi-pod"]):     # the plan, written on the CPU
+        with pytest.raises(SystemExit) as exc:
+            train_main(["--arch", "smollm-360m", "--dry-run", "--device",
+                        "cpu", "--out", str(tmp_path / "plan")] + extra)
+        assert exc.value.code == 0
+    records = sorted(p.name for p in (tmp_path / "plan").iterdir())
+    assert records == ["smollm-360m__train_4k__pod16x16.json",
+                       "smollm-360m__train_4k__pod2x16x16.json"]
