@@ -26,8 +26,10 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    one-hot probabilities; decode at lengths on the split's chunk
    boundaries, also against the plain split-and-merge; flash (the CUDA-core
    kernel, f32 and bf16: ragged S, causal, windows, GQA) and decode
-   (ragged lengths) at head_dim 112, zamba2-7b's; and decode's slots past
-   lengths (bitwise no influence);
+   (ragged lengths) at head_dim 112, zamba2-7b's; decode's slots past
+   lengths (bitwise no influence); and decode's log-sum-exp output
+   (``return_lse``) against the plain version's at head_dim 64, 112 and
+   128, lengths 0 included (-inf there), the output unchanged bit for bit;
 4. the MOCHA main path: full-size experiments through
    ``repro_torch.api.Experiment.run`` with ``engine="kernel"``, every launch
    counter set to 0 just before each and read just after, then the same
@@ -129,7 +131,18 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 10. profile two warm blocks of the cohort path at K 256 on each engine
    (``phase_cohort_profile``), then two rounds of each driver on the local
    engine at Vehicle Sensor: replays of the pre-sampled driver's own
-   program and a loop run (device kernels and busy share per round), last.
+   program and a loop run (device kernels and busy share per round);
+11. last (its four extra processes on the card perturb no timing), the
+   sharded LM step (``phase_mesh_step``) on a 2 x 2 mesh of four gloo
+   ranks sharing the card (spawned ``chip_smoke.py --mesh-rank``):
+   SmolLM-360M at full width, two AdamW steps in bf16 with f32 masters at
+   B 4 x 512 (batch over ('data', 'model')) and two in f32 at B 2 x 512,
+   a generate of 8 tokens at B 8 after a 1024-token prompt in f32 and
+   bf16, and granite-3-2b's (heads split over 'model') at B 2 x 256 in
+   bf16, each held against the same run on one device of the card (ce,
+   grad_norm, logits, tokens), flash and decode launched on every rank,
+   no decode step gathering the sequence-sharded cache, DTensor's
+   collectives a step counted.
 
 It prints the kernel table as JSON, the card line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Exits nonzero,
@@ -1037,7 +1050,7 @@ def phase_cohort_path():
         kernel()
     ms = _events_ms(kernel, 50)
     device_ms = _device_ms_per_call(lambda c: K.sdca_local_solve(**c),
-                                    [case], 20, ("sdca_kernel",))
+                                    [case], PROFILE_CALLS, ("sdca_kernel",))
     plain()
     plain_ms = _events_ms(plain, 3)
     b = bound(case)
@@ -1539,7 +1552,8 @@ def phase_timing(main, errs):
             kernel()
         ms = _events_ms(kernel, 50)
         device_ms = _device_ms_per_call(lambda c: K.sdca_local_solve(**c),
-                                        [case], 20, ("sdca_kernel",))
+                                        [case], PROFILE_CALLS,
+                                        ("sdca_kernel",))
         plain()
         plain_ms = _events_ms(plain, 3)
         b = bound(case)
@@ -1687,7 +1701,12 @@ def plain_attention():
         return _attn_plain("flash", dict(q=q, k=k, v=v, causal=causal,
                                          window=window))
 
-    def decode(q, k, v, lengths):
+    def decode(q, k, v, lengths, return_lse=False):
+        from repro_torch.kernels.decode_attention import decode_attention_ref
+        if return_lse:
+            out, lse = decode_attention_ref(q[:, 0], k, v, lengths,
+                                            return_lse=True)
+            return out[:, None], lse
         return _attn_plain("decode", dict(q=q, k=k, v=v, lengths=lengths))
 
     layers.flash_mha, layers.decode_mha = flash, decode
@@ -1863,6 +1882,7 @@ def phase_attention_kernels():
         run("decode", f"d112 B3 T1000 GQA 8/2 ragged lengths {n}",
             decode_case(3, 1000, 8, 2, 112, [999, 64, 513], dt))
     check_decode_masking(lens)
+    errs[("decode_lse", f32)] = check_decode_lse()
     return errs
 
 
@@ -1879,6 +1899,46 @@ def check_decode_masking(lens):
         raise AssertionError("decode kernel reads slots past lengths")
     print("decode kernel [garbage past lengths]: output bitwise unchanged "
           "ok", flush=True)
+
+
+def check_decode_lse():
+    """The decode kernel's log-sum-exp output (``return_lse``, what the
+    mesh's sequence-sharded decode merges by) against the plain split and
+    merge's, f32 and bf16 at head_dim 64, 112 and 128, lengths 0 included:
+    within 2e-5 x max(1, |lse|), -inf exactly where a row has no live slot;
+    the output bitwise the one without ``return_lse``.  Returns the largest
+    share of the tolerance."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_split_ref, split_plan)
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for d in (64, 112, 128):
+            b, t, h, hkv = 6, 600, 8, 2
+            case = decode_case(b, t, h, hkv, d, [0, 1, 63, 300, 599, 600],
+                               dt)
+            q, k, v, lens = (case["q"][:, 0], case["k"], case["v"],
+                             case["lengths"])
+            out, lse = decode_attention(q, k, v, lens, return_lse=True)
+            out0 = decode_attention(q, k, v, lens)
+            chunk = split_plan(t, b, hkv, torch.cuda.get_device_properties(
+                0).multi_processor_count)
+            _, want = decode_attention_split_ref(q, k, v, lens, chunk,
+                                                 return_lse=True)
+            torch.cuda.synchronize()
+            dead = torch.isneginf(want)
+            share = float(((lse[~dead] - want[~dead]).abs()
+                           / (2e-5 * want[~dead].abs().clamp_min(1.0)))
+                          .max())
+            ok = (torch.equal(torch.isneginf(lse), dead) and share <= 1.0
+                  and torch.equal(out, out0) and not out[0].any())
+            worst = max(worst, share)
+            print(f"decode kernel lse vs plain [{str(dt)[6:]} d{d}, "
+                  f"lengths 0..T]: largest share of 2e-5 x max(1, |lse|) "
+                  f"{share:.3f}, -inf rows {int(dead.sum())}, output bitwise "
+                  f"unchanged {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"decode lse {dt} d{d}")
+    return worst
 
 
 def _lm_model():
@@ -2076,6 +2136,11 @@ def _host_ms(fn, cases, reps):
     host = time.perf_counter() - t0
     torch.cuda.synchronize()
     return 1e3 * host / reps
+
+
+#: calls a profiler session times: it misses a session's first 8-16
+#: launches (§7 of PERF.md), and late in a run once all of the first 20
+PROFILE_CALLS = 50
 
 
 def _device_ms_per_call(fn, cases, reps, keys):
@@ -2695,7 +2760,7 @@ def personalize_kernel_timing(fed, card):
         kernel()
     ms = _events_ms(kernel, 50)
     device_ms = _device_ms_per_call(lambda c: K.sdca_local_solve(**c),
-                                    [case], 20, ("sdca_kernel",))
+                                    [case], PROFILE_CALLS, ("sdca_kernel",))
     plain()
     plain_ms = _events_ms(plain, 3)
     b = bound(case)
@@ -3261,6 +3326,354 @@ def phase_dryrun():
                                        for r in records.values()))
 
 
+# ---------------------------------------------------------------------------
+# the sharded LM step on a 2 x 2 mesh of gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_TIMEOUT_S = 600
+MESH_SEQ = 512
+#: (arch, dtype, batch): two AdamW steps each; B 4 puts the batch over
+#: ('data', 'model'), B 2 over ('data',) with the weights over 'model'
+MESH_TRAIN = (("smollm-360m", torch.bfloat16, 4),
+              ("smollm-360m", torch.float32, 2))
+MESH_TRAIN_STEPS = 2
+#: (arch, batch, prompt, dtypes) of one generate each
+MESH_GEN = (("smollm-360m", 8, 1024, (torch.float32, torch.bfloat16)),
+            ("granite-3-2b", 2, 256, (torch.bfloat16,)))
+MESH_NEW = 8
+#: mesh step vs one device: ce and grad_norm relative (bf16: ce only, the
+#: train contract's)
+MESH_TRAIN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
+
+
+def _mesh_tokens(vocab, b, s, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, vocab, (b, s))).to(
+        DEV, torch.int32)
+
+
+def _mesh_model(arch, mesh=None, dm=None, mode="train", tc=None):
+    """The arch at full width from seed 0 on the card; on a mesh its
+    parameters placed by the plan (``mode``), the ranks one after another
+    so that only one holds a whole model at a time."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import init_train_state
+    cfg = get_config(arch)
+    if dm is None:
+        model = build_model(cfg, device=DEV, seed=0)
+        state = init_train_state(model, tc)[1] if tc else None
+        return cfg, model, state
+    model = state = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            model = build_model(cfg, device=DEV, seed=0)
+            state = init_train_state(model, tc)[1] if tc else None
+            specs = sh.params_shardings(model.tree(), cfg, mesh, mode=mode)
+            model.load_tree(sh.distribute(model.tree(), specs, mesh, dm))
+            if tc:
+                state = sh.distribute(state, sh.opt_shardings(state, specs),
+                                      mesh, dm)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return cfg, model, state
+
+
+def mesh_train_run(arch, dtype, b, mesh=None, dm=None):
+    """MESH_TRAIN_STEPS AdamW steps of ``arch`` at B ``b`` x MESH_SEQ: on one
+    device (``dm`` None) or through ``build_case``'s step on the mesh.
+    Per step: ce, grad_norm and wall (s); on the mesh, DTensor's
+    collectives of the first step by kind (``CommDebugMode``, whose
+    dispatch hook slows that step; the later steps run without it)."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.specs import build_case_from_cfg
+    from repro_torch.train.loop import TrainConfig, make_train_step
+    from repro_torch.utils.dist import dtensor_collectives
+    from repro_torch.utils.pjit_utils import activation_sharding
+    tc = TrainConfig(compute_dtype=dtype,
+                     master_weights=dtype != torch.float32)
+    cfg, model, opt = _mesh_model(arch, mesh, dm, "train", tc)
+    params = model.tree()
+    if dm is None:
+        step, ctx, axes = make_train_step(model, tc), contextlib.nullcontext, ()
+    else:
+        case = build_case_from_cfg(cfg, "train_4k", mesh, compute_dtype=dtype)
+        axes = sh.pick_batch_axes(mesh, b, allow_model=True)
+        step = case["fn"]
+        ctx = lambda: activation_sharding(mesh, axes, dm)  # noqa: E731
+    out = dict(ce=[], grad_norm=[], wall_s=[], collectives={},
+               batch_axes=list(axes))
+    for i in range(MESH_TRAIN_STEPS):
+        batch = {"tokens": _mesh_tokens(cfg.vocab_size, b, MESH_SEQ, 100 + i)}
+        if dm is not None:
+            batch = sh.distribute(batch, sh.batch_shardings(batch, mesh,
+                                                            axes), mesh, dm)
+        counted = (dtensor_collectives() if i == 0 and dm is not None
+                   else contextlib.nullcontext((None, None)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx(), counted as (mode, _):
+            params, opt, metrics = step(params, opt, batch)
+            torch.cuda.synchronize()
+        out["wall_s"].append(time.perf_counter() - t0)
+        out["ce"].append(float(metrics["ce"]))
+        out["grad_norm"].append(float(metrics["grad_norm"]))
+        if mode is not None:
+            out["collectives"] = {str(k).split(".")[-1]: v for k, v in
+                                  mode.get_comm_counts().items()}
+    del model, params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_generate_run(arch, b, prompt, dtype, fed=None, mesh=None, dm=None):
+    """Prefill ``prompt`` tokens, then MESH_NEW - 1 decode steps (fed the
+    tokens ``fed``, else greedy): the logits of each step, the tokens fed
+    and the wall; on the mesh, one more decode step after the timed ones
+    with DTensor's collectives recorded (``utils.dist.
+    dtensor_collectives``): their count by kind, the largest all-gather's
+    elements and the all-gathers of as many elements as a rank's shard of
+    a layer's k or v cache (there must be none)."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.specs import build_case_from_cfg
+    from repro_torch.utils.dist import dtensor_collectives
+    from repro_torch.utils.pjit_utils import activation_sharding
+    cfg, model, _ = _mesh_model(arch, mesh, dm, "serve")
+    max_len = prompt + MESH_NEW + 8
+    tokens = _mesh_tokens(cfg.vocab_size, b, prompt, 7)
+    params = model.weights(dtype)
+    cache = model.init_cache(b, max_len, dtype=dtype)
+    if dm is None:
+        prefill = lambda p, x, c: model.prefill(x, c, dtype)  # noqa: E731
+        decode = lambda p, t, c: model.decode_step(t, c, dtype)  # noqa: E731
+        ctx = contextlib.nullcontext
+    else:
+        cache = sh.distribute(cache, sh.cache_shardings(cache, cfg, mesh),
+                              mesh, dm)
+        prefill = build_case_from_cfg(cfg, "prefill_32k", mesh,
+                                      compute_dtype=dtype)["fn"]
+        decode = build_case_from_cfg(cfg, "decode_32k", mesh,
+                                     compute_dtype=dtype)["fn"]
+        axes = sh.pick_batch_axes(mesh, b, allow_model=False)
+        ctx = lambda: activation_sharding(mesh, axes, dm)  # noqa: E731
+    logits, sent, counts, largest, cache_gathers = [], [], {}, 0, []
+    shard = int(np.prod(cache["blocks"][0]["k"].to_local().shape
+                        if dm is not None else 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ctx():
+        out, cache = prefill(params, {"tokens": tokens}, cache)
+        for i in range(MESH_NEW):
+            full = out.full_tensor() if hasattr(out, "full_tensor") else out
+            logits.append(full.float().cpu().numpy())
+            if i == MESH_NEW - 1:
+                break
+            tok = (torch.from_numpy(fed[i]).to(DEV) if fed is not None
+                   else full.argmax(-1).to(torch.int32))
+            sent.append(tok.cpu().numpy())
+            out, cache = decode(params, tok, cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if dm is not None:
+            with dtensor_collectives() as (mode, calls):
+                decode(params, tok, cache)
+            counts = {str(k).split(".")[-1]: v
+                      for k, v in mode.get_comm_counts().items()}
+            gathers = [int(np.prod(c.shape)) for c in calls
+                       if "gather" in c.name]
+            largest = max([0] + gathers)
+            cache_gathers = [n for n in gathers if n == shard]
+    del model, params, cache
+    torch.cuda.empty_cache()
+    return dict(logits=np.stack(logits), fed=np.stack(sent), wall_s=wall,
+                decode_collectives=counts, largest_gather=largest,
+                cache_shard=shard, cache_gathers=cache_gathers)
+
+
+def mesh_rank(rank, store, tdir):
+    """One of MESH_RANKS gloo ranks on the one card (``phase_mesh_step``,
+    spawned by ``chip_smoke.py --mesh-rank``): every MESH_TRAIN and MESH_GEN
+    run on a 2 x 2 mesh, the launch counters set to 0 just before and read
+    just after; rank 0 writes the results."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import device_mesh, make_test_mesh
+    from repro_torch.utils.dist import gloo_collectives
+    rank = int(rank)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, MESH_RANKS),
+                            rank=rank, world_size=MESH_RANKS,
+                            timeout=timedelta(seconds=MESH_TIMEOUT_S // 2))
+    mesh = make_test_mesh(2, 2)
+    dm = device_mesh(mesh, device="cuda")
+    ref = dict(np.load(f"{tdir}/ref.npz"))
+    reset_all_counts()
+    train, gen = [], []
+    with gloo_collectives():
+        for arch, dtype, b in MESH_TRAIN:
+            train.append(mesh_train_run(arch, dtype, b, mesh, dm))
+        for arch, b, prompt, dtypes in MESH_GEN:
+            for dtype in dtypes:
+                key = f"fed_{arch}_{str(dtype)[6:]}"
+                gen.append(mesh_generate_run(arch, b, prompt, dtype,
+                                             ref[key], mesh, dm))
+    counts = read_counts()
+    launches = [None] * MESH_RANKS
+    dist.all_gather_object(launches, counts)
+    if rank == 0:
+        np.savez(f"{tdir}/mesh.npz", **{f"logits_{i}": g.pop("logits")
+                                        for i, g in enumerate(gen)})
+        for g in gen:
+            g.pop("fed")
+        with open(f"{tdir}/mesh.json", "w") as f:
+            json.dump(dict(train=train, gen=gen, launches=launches), f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_mesh_ranks(tdir):
+    logs = [open(f"{tdir}/log.{r}", "w+") for r in range(MESH_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-X", "faulthandler",
+         str(Path(__file__).resolve()), "--mesh-rank", str(r),
+         f"{tdir}/store", tdir],
+        stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(MESH_RANKS)]
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    failed = []
+    for r, p in enumerate(procs):
+        logs[r].seek(0)
+        log = logs[r].read()
+        logs[r].close()
+        if p.returncode != 0:
+            failed.append(f"mesh rank {r} exited {p.returncode}: "
+                          f"{log[-3000:]}")
+    if failed:
+        raise AssertionError("\n".join(failed))
+
+
+def phase_mesh_step():
+    """The sharded LM step (``launch.specs.build_case``'s ``fn`` on DTensor
+    parameters, optimizer state, batch and cache) on a 2 x 2 mesh of
+    MESH_RANKS gloo ranks sharing the card (spawned ``chip_smoke.py
+    --mesh-rank``): SmolLM-360M at full width, MESH_TRAIN_STEPS AdamW steps
+    in bf16 with f32 masters at B 4 x 512 (batch over ('data', 'model'))
+    and in f32 at B 2 x 512 (over ('data',)); one generate (prefill, then
+    MESH_NEW - 1 decode steps) of SmolLM-360M at B 8, prompt 1024, f32 and
+    bf16, and of granite-3-2b at B 2, prompt 256, bf16 (heads split over
+    'model'), the decode steps fed the one-device run's tokens.  Each run
+    is held against the same run on one device of the card, made first
+    and freed before the spawn: ce and grad_norm within MESH_TRAIN_RTOL,
+    logits within LOGIT_TOL of max(1, max |logit|), f32 greedy tokens
+    equal.  No decode step all-gathers a rank's shard of a layer's k or v
+    cache.  Prints walls, DTensor's collectives (``CommDebugMode``)
+    a step and the launches of every rank."""
+    import tempfile
+    t0 = time.perf_counter()
+    ref_train, ref_gen, fed = [], [], {}
+    for arch, dtype, b in MESH_TRAIN:
+        ref_train.append(mesh_train_run(arch, dtype, b))
+    for arch, b, prompt, dtypes in MESH_GEN:
+        for dtype in dtypes:
+            run = mesh_generate_run(arch, b, prompt, dtype)
+            fed[f"fed_{arch}_{str(dtype)[6:]}"] = run["fed"]
+            ref_gen.append(run)
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tdir:
+        np.savez(f"{tdir}/ref.npz", **fed)
+        t1 = time.perf_counter()
+        _spawn_mesh_ranks(tdir)
+        spawn_s = time.perf_counter() - t1
+        with open(f"{tdir}/mesh.json") as f:
+            got = json.load(f)
+        logits = dict(np.load(f"{tdir}/mesh.npz"))
+    report = dict(ranks=MESH_RANKS, mesh="2x2 (data, model)",
+                  one_device_s=ref_s, ranks_s=spawn_s, train=[], generate=[])
+    for (arch, dtype, b), one, mesh in zip(MESH_TRAIN, ref_train,
+                                           got["train"]):
+        errs = {k: max(abs(m - o) / abs(o) for m, o in zip(mesh[k], one[k]))
+                for k in ("ce", "grad_norm")}
+        name = str(dtype)[6:]
+        ok = errs["ce"] <= MESH_TRAIN_RTOL[dtype] and (
+            dtype != torch.float32
+            or errs["grad_norm"] <= MESH_TRAIN_RTOL[dtype])
+        row = dict(arch=arch, dtype=name, batch=b, seq=MESH_SEQ,
+                   batch_axes=mesh["batch_axes"], ce=mesh["ce"],
+                   ce_one_device=one["ce"], rel_err=errs,
+                   wall_s=mesh["wall_s"], wall_s_one_device=one["wall_s"],
+                   collectives=mesh["collectives"])
+        report["train"].append(row)
+        print(f"mesh train {arch} {name} B{b}x{MESH_SEQ} over "
+              f"{mesh['batch_axes']}: ce {mesh['ce']} (one device "
+              f"{one['ce']}), rel err ce {errs['ce']:.2e} grad_norm "
+              f"{errs['grad_norm']:.2e}, wall/step {mesh['wall_s']} s "
+              f"(one device {one['wall_s']}), collectives/step "
+              f"{mesh['collectives']} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"mesh train {arch} {name}: {errs}")
+    i = 0
+    for arch, b, prompt, dtypes in MESH_GEN:
+        for dtype in dtypes:
+            one, mesh = ref_gen[i], got["gen"][i]
+            got_l, want = logits[f"logits_{i}"], one["logits"]
+            scale = max(1.0, float(np.abs(want).max()))
+            steps = [float(np.abs(g - w).max()) / scale
+                     for g, w in zip(got_l, want)]
+            err = max(steps)
+            same = bool((got_l.argmax(-1) == want.argmax(-1)).all())
+            name = str(dtype)[6:]
+            ok = (err <= LOGIT_TOL[dtype] and np.isfinite(got_l).all()
+                  and (same or dtype != torch.float32)
+                  and not mesh["cache_gathers"])
+            row = dict(arch=arch, dtype=name, batch=b, prompt=prompt,
+                       new=MESH_NEW, logit_err=err, logit_err_steps=steps,
+                       tokens_equal=same,
+                       wall_s=mesh["wall_s"], wall_s_one_device=one["wall_s"],
+                       decode_collectives=mesh["decode_collectives"],
+                       largest_gather=mesh["largest_gather"],
+                       cache_shard=mesh["cache_shard"],
+                       cache_gathers=mesh["cache_gathers"])
+            report["generate"].append(row)
+            print(f"mesh generate {arch} {name} B{b} prompt {prompt} + "
+                  f"{MESH_NEW}: logits err {err:.3e} of max(1, |logit|) "
+                  f"(limit {LOGIT_TOL[dtype]}; prefill {steps[0]:.3e}, "
+                  f"decode steps up to {max(steps[1:]):.3e}), tokens equal "
+                  f"{same}, wall "
+                  f"{mesh['wall_s']:.2f} s (one device {one['wall_s']:.2f}),"
+                  f" collectives/decode step {mesh['decode_collectives']}, "
+                  f"largest all-gather {mesh['largest_gather']} elements, "
+                  f"of a layer's k or v cache shard "
+                  f"({mesh['cache_shard']}): {len(mesh['cache_gathers'])} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"mesh generate {arch} {name}")
+            i += 1
+    report["launches"] = {k: sum(c[k] for c in got["launches"])
+                          for k in ("flash_attention", "decode_attention")}
+    report["launches_by_rank"] = got["launches"]
+    report["wall_s"] = time.perf_counter() - t0
+    if min(report["launches"].values()) == 0:
+        raise AssertionError(f"mesh step: a kernel was not launched: "
+                             f"{report['launches']}")
+    print(f"mesh step: launches over {MESH_RANKS} ranks "
+          f"{report['launches']}, phase {report['wall_s']:.1f} s "
+          f"(one device {ref_s:.1f}, ranks {spawn_s:.1f}) [{card_line()}]",
+          flush=True)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3294,6 +3707,8 @@ def main() -> int:
     phase_lm_profile(lm)
     cohort["profile"] = phase_cohort_profile()
     eval_path["replay_profile"] = phase_eval_profile(eval_path["drivers"])
+    # last: its four extra processes on the card perturb no timing
+    mesh_step = phase_mesh_step()
     head = shapes["vehicle_sensor"]
     shapes["cohort_k256"] = dict(cohort["kernel"],
                                  max_abs_err=errs["cohort"])
@@ -3306,10 +3721,12 @@ def main() -> int:
                                       for dt in ("float32", "bfloat16")),
                    "personalize": pers["counts"]["flash_attention"],
                    "train": train["launches"],
-                   "families": families["flash_attention"]}
+                   "families": families["flash_attention"],
+                   "mesh_step": mesh_step["launches"]["flash_attention"]}
     decode_paths = {"lm_generate": sum(lm[dt]["counts"]["decode_attention"]
                                        for dt in ("float32", "bfloat16")),
-                    "families": families["decode_attention"]}
+                    "families": families["decode_attention"],
+                    "mesh_step": mesh_step["launches"]["decode_attention"]}
     kernels = [dict(
         name="sdca_local_solve", route="cuda",
         source="src/repro_torch/kernels/sdca/csrc/sdca.cu",
@@ -3341,6 +3758,8 @@ def main() -> int:
             shapes={"float32": f32, "bfloat16": bf16,
                     "zamba2_float32": attn[(name, "float32", "zamba2")],
                     "zamba2_bfloat16": attn[(name, "bfloat16", "zamba2")]}))
+    # the decode kernel's lse output against its plain version's
+    kernels[-1]["lse_max_share"] = attn_errs[("decode_lse", torch.float32)]
     print(json.dumps({"serve_ms": serve}))
     print(json.dumps({"eval_path": eval_path}))
     print(json.dumps({"cohort_path": cohort}))
@@ -3350,6 +3769,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"families": families["runs"]}))
     print(json.dumps({"dryrun": dry}))
+    print(json.dumps({"mesh_step": mesh_step}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3361,4 +3781,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:
         sys.exit(sharded_rank(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(*sys.argv[2:5]))
     sys.exit(main())

@@ -44,7 +44,11 @@
 // and one thread per column combines the chunks: m* = max m_i over the
 // chunks with l_i > 0, l = sum e^{m_i - m*} l_i, out = sum e^{m_i - m*}
 // acc_i / max(l, 1e-20).  A chunk with l_i = 0 adds exactly nothing (its m
-// and acc are never read, so -inf - -inf never arises).
+// and acc are never read, so -inf - -inf never arises).  Where the caller
+// asks for it, the merge also writes each row's log-sum-exp, lse = m* + log
+// l in the scaled scores' units (f32, (B, H)), and -inf where l = 0: what a
+// caller needs to merge the outputs of calls over disjoint slices of one
+// cache (the sequence-sharded decode of models/layers.py).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -305,7 +309,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(D)
 decode_merge_kernel(const float* __restrict__ part_ml,
                     const float* __restrict__ part_acc, T* __restrict__ o,
-                    int H, int n_split) {
+                    float* __restrict__ lse, int H, int n_split) {
   const size_t bh = (size_t)blockIdx.y * H + blockIdx.x;
   const int d = threadIdx.x;
   const float* ml = part_ml + 2 * bh * n_split;
@@ -322,6 +326,14 @@ decode_merge_kernel(const float* __restrict__ part_ml,
     }
   }
   store(o + bh * D + d, acc / fmaxf(l, 1e-20f));
+  if (lse != nullptr && d == 0)
+    lse[bh] = l > 0.f ? m + logf(l) : hopper::neg_inf();
+}
+
+// lse of every row when no slot can be read (T = 0): -inf
+__global__ void fill_neg_inf(float* __restrict__ x, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) x[i] = hopper::neg_inf();
 }
 
 template <typename T>
@@ -332,8 +344,9 @@ constexpr CUtensorMapDataType map_type() {
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* o, float* partials, int B, int Tlen, int H, int Hkv,
-           int chunk, float scale, int device, cudaStream_t stream) {
+           void* o, float* partials, float* lse, int B, int Tlen, int H,
+           int Hkv, int chunk, float scale, int device,
+           cudaStream_t stream) {
   if (chunk <= 0 || chunk % kTile) return kErrUnsupported;
   const size_t bytes = make_layout<T, D>(H / Hkv, chunk).bytes;
   if ((long long)bytes > hopper::shared_limit(device))
@@ -341,10 +354,13 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   int rc = hopper::allow_shared<decode_split_kernel<T, D>>((int)bytes);
   if (rc != 0) return rc;
   if (B == 0 || Hkv == 0 || Tlen == 0) {
-    // no slot to attend to: every output is 0, as acc / max(0, 1e-20)
-    if (B && H) return (int)cudaMemsetAsync(o, 0, (size_t)B * H * D *
-                                                   sizeof(T), stream);
-    return 0;
+    // no slot to attend to: every output is 0, as acc / max(0, 1e-20),
+    // and every lse -inf
+    if (B == 0 || H == 0) return 0;
+    rc = (int)cudaMemsetAsync(o, 0, (size_t)B * H * D * sizeof(T), stream);
+    if (rc != 0 || lse == nullptr) return rc;
+    fill_neg_inf<<<(B * H + 255) / 256, 256, 0, stream>>>(lse, B * H);
+    return (int)cudaGetLastError();
   }
   CUtensorMap km, vm;
   rc = hopper::encode_4d(&km, map_type<T>(), sizeof(T), k, D, Hkv, Tlen,
@@ -363,31 +379,31 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_merge_kernel<T, D><<<dim3(H, B), D, 0, stream>>>(
-      part_ml, part_acc, (T*)o, H, n_split);
+      part_ml, part_acc, (T*)o, lse, H, n_split);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int D, const void* q, const void* k, const void* v,
-             const void* lengths, void* o, float* partials, int B, int Tlen,
-             int H, int Hkv, int chunk, float scale, int device,
-             cudaStream_t stream) {
+             const void* lengths, void* o, float* partials, float* lse,
+             int B, int Tlen, int H, int Hkv, int chunk, float scale,
+             int device, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, lengths, o, partials, B, Tlen, H, Hkv,
-                           chunk, scale, device, stream);
+      return launch<T, 32>(q, k, v, lengths, o, partials, lse, B, Tlen, H,
+                           Hkv, chunk, scale, device, stream);
     case 64:
-      return launch<T, 64>(q, k, v, lengths, o, partials, B, Tlen, H, Hkv,
-                           chunk, scale, device, stream);
+      return launch<T, 64>(q, k, v, lengths, o, partials, lse, B, Tlen, H,
+                           Hkv, chunk, scale, device, stream);
     case 112:
-      return launch<T, 112>(q, k, v, lengths, o, partials, B, Tlen, H, Hkv,
-                            chunk, scale, device, stream);
+      return launch<T, 112>(q, k, v, lengths, o, partials, lse, B, Tlen, H,
+                            Hkv, chunk, scale, device, stream);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, o, partials, B, Tlen, H, Hkv,
-                            chunk, scale, device, stream);
+      return launch<T, 128>(q, k, v, lengths, o, partials, lse, B, Tlen, H,
+                            Hkv, chunk, scale, device, stream);
     case 256:
-      return launch<T, 256>(q, k, v, lengths, o, partials, B, Tlen, H, Hkv,
-                            chunk, scale, device, stream);
+      return launch<T, 256>(q, k, v, lengths, o, partials, lse, B, Tlen, H,
+                            Hkv, chunk, scale, device, stream);
     default:
       return kErrUnsupported;
   }
@@ -419,23 +435,27 @@ long long decode_attention_shared_bytes(int G, int D, int chunk,
 // Launches the split and merge kernels on `stream`.  dtype 0 is float32, 1
 // bfloat16; lengths is int32 on the device; chunk (a multiple of 64) is the
 // number of cache slots per split; partials holds B * H * ceil(T / chunk)
-// * (D + 2) floats of scratch.  Returns 0, a CUDA error code,
+// * (D + 2) floats of scratch; lse, where not null, takes B * H floats (each
+// row's log-sum-exp, -inf for a row with no live slot).  Returns 0, a CUDA
+// error code,
 // kErrUnsupported for a head_dim, dtype or chunk without a build,
 // kErrSharedMemory, or hopper::kErrTensorMap.  Does not synchronise.
 int decode_attention_fwd(const void* q, const void* k, const void* v,
-                         const void* lengths, void* o, void* partials, int B,
-                         int Tlen, int H, int Hkv, int D, int dtype,
-                         int chunk, float scale, int device, void* stream) {
+                         const void* lengths, void* o, void* partials,
+                         void* lse, int B, int Tlen, int H, int Hkv, int D,
+                         int dtype, int chunk, float scale, int device,
+                         void* stream) {
   int err = hopper::use_device(device);
   if (err != 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
   float* part = (float*)partials;
+  float* l = (float*)lse;
   if (dtype == 0)
-    return dispatch<float>(D, q, k, v, lengths, o, part, B, Tlen, H, Hkv,
+    return dispatch<float>(D, q, k, v, lengths, o, part, l, B, Tlen, H, Hkv,
                            chunk, scale, device, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, lengths, o, part, B, Tlen, H,
-                                   Hkv, chunk, scale, device, s);
+    return dispatch<__nv_bfloat16>(D, q, k, v, lengths, o, part, l, B, Tlen,
+                                   H, Hkv, chunk, scale, device, s);
   return kErrUnsupported;
 }
 

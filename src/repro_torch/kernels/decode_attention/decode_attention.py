@@ -9,7 +9,9 @@ place up to each row's length.
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version (``ref.decode_attention_ref``).  A call launches
 two kernels, the split phase and the merge (``split_plan`` picks the
-chunk), and adds one to ``COUNTS["decode_attention"]``.
+chunk), and adds one to ``COUNTS["decode_attention"]``.  With
+``return_lse`` the merge also writes each row's log-sum-exp, so that calls
+over disjoint slices of one cache merge exactly (``ref.merge_slices``).
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ def reset_counts() -> None:
 
 def _bind(lib) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attention_fwd.argtypes = ([P] * 6 + [I] * 7 + [ctypes.c_float]
+    lib.decode_attention_fwd.argtypes = ([P] * 7 + [I] * 7 + [ctypes.c_float]
                                          + [I, P])
     lib.decode_attention_fwd.restype = I
     lib.decode_attention_shared_bytes.argtypes = [I, I, I, I]
@@ -68,12 +70,14 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, return_lse: bool = False):
     """One query token per row: q (B, H, D) over the cache k, v
     (B, T, Hkv, D), slots t < lengths[b] (int, (B,)); f32 or bf16 in, the
-    same dtype out.  Returns (B, H, D)."""
+    same dtype out.  Returns (B, H, D); with ``return_lse`` also each row's
+    log-sum-exp of its scaled scores (f32, (B, H); -inf for a row with no
+    live slot, whose output is 0)."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, lengths)
+        return decode_attention_ref(q, k, v, lengths, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, got "
                          f"{q.device}")
@@ -98,6 +102,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_operand("lengths", lengths, (b,), (torch.int32,), q.device)
     out = torch.empty_like(q)
     dev = q.device
+    lse = (torch.empty((b, h), dtype=torch.float32, device=dev)
+           if return_lse else None)
     chunk = split_plan(t, b, hkv, _sm_count(dev))
     n_split = max(1, -(-t // chunk))
     partials = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32,
@@ -105,7 +111,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = load("decode_attention", _bind)
     rc = lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), partials.data_ptr(), b, t, h, hkv, d,
+        out.data_ptr(), partials.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, t, h, hkv, d,
         DTYPES[q.dtype], chunk, 1.0 / d ** 0.5, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc == _ERR_SHARED_MEMORY:
@@ -119,4 +126,4 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"decode attention kernel launch failed: "
                            f"error {rc}")
     COUNTS["decode_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -16,7 +16,9 @@ production mesh (``launch.sharding``), and records what one device holds:
 
 ``temp_bytes``, ``flops_hlo`` and ``collectives`` are the compiler's half
 (the JAX package reads them from XLA's compiled step) and stay ``null``
-here: ROADMAP.md items 22 (the sharded step) and 23 (its costs).
+here: ROADMAP.md item 23, a cost probe of the sharded step that
+``build_case``'s ``fn`` runs on a mesh (the dense family; the rest is
+item 24).
 
 Records land in results/dryrun_torch/<arch>__<shape>__<mesh>.json.
 
@@ -56,8 +58,8 @@ PARTS = {"train": ("params", "optimizer", "batch"),
 DONATED = {"train": ("params", "optimizer"), "prefill": ("cache",),
            "decode": ("cache",)}
 NOTE = ("temp_bytes, flops_hlo and collectives are the compiled step's; "
-        "not measured until the sharded step and its costs are ported "
-        "(ROADMAP.md items 22 and 23)")
+        "not measured until a cost probe of the sharded step is ported "
+        "(ROADMAP.md item 23)")
 GIB = 2 ** 30
 
 

@@ -304,3 +304,45 @@ def placements(spec: Spec, mesh: MeshSpec) -> tuple:
         for i in idx:
             out[i] = Shard(d)
     return tuple(out)
+
+
+def distribute(tree, specs, mesh: MeshSpec, device_mesh):
+    """``tree`` with every tensor leaf a DTensor on ``device_mesh`` (built
+    from ``mesh`` by ``launch.mesh.device_mesh``), placed by its spec in
+    ``specs`` (a tree of the same structure) through ``placements``.
+    Every rank holds the same whole tree (the seeded initialisation gives
+    it), so each cuts its own shard and nothing is sent
+    (``distribute_tensor`` with no source rank).  Other leaves (the
+    optimizer's host step, None) stay as they are.  Raises, before it
+    places anything, on a tensor leaf without a spec."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def walk(t, s, path, place):
+        if isinstance(t, dict):
+            if not isinstance(s, dict) or set(s) != set(t):
+                raise ValueError(f"{path or '/'}: no spec tree for keys "
+                                 f"{sorted(t)}")
+            return {k: walk(v, s[k], f"{path}/{k}", place)
+                    for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            if not isinstance(s, (list, tuple)) or len(s) != len(t):
+                raise ValueError(f"{path or '/'}: no spec list for "
+                                 f"{len(t)} entries")
+            items = [walk(v, sv, f"{path}/{i}", place)
+                     for i, (v, sv) in enumerate(zip(t, s))]
+            return type(t)(*items) if hasattr(t, "_fields") else \
+                type(t)(items)
+        if not torch.is_tensor(t):
+            return t
+        if not (isinstance(s, tuple) and len(s) == t.dim()
+                and not any(isinstance(e, (list, dict)) for e in s)):
+            raise ValueError(f"{path}: no spec for a {tuple(t.shape)} "
+                             f"leaf (got {s!r})")
+        if not place:
+            return t
+        out = distribute_tensor(t.detach(), device_mesh,
+                                placements(s, mesh), src_data_rank=None)
+        return out.requires_grad_(t.requires_grad)
+
+    walk(tree, specs, "", False)
+    return walk(tree, specs, "", True)

@@ -4,8 +4,14 @@ package's ``launch/specs.py``.
 Where the JAX package has ``ShapeDtypeStruct`` trees from
 ``jax.eval_shape``, the port has trees of tensors on the ``meta`` device:
 shapes and dtypes, no storage.  ``build_case`` returns what one step of a
-shape takes (abstract args and their specs, what is donated); it returns
-no step function and compiles nothing.
+shape takes (abstract args and their specs, what is donated) and, as the
+JAX package's does, the step itself, ``fn``: ``make_train_step(
+param_specs=)`` for training, ``Model.prefill`` and ``Model.decode_step``
+over a params argument for serving.  ``fn`` runs on the same trees placed
+on a mesh (``sharding.distribute``) inside ``utils.pjit_utils.
+activation_sharding(mesh, batch_axes, device_mesh)``, for the dense
+family; for the other families (and the window variant) it raises,
+naming ROADMAP.md item 24.  Nothing is compiled.
 
 Every leaf has the JAX package's dtype: int32 tokens, bf16 image
 embeddings, bf16 weights where JAX casts them (every float32 leaf of rank
@@ -32,8 +38,10 @@ from repro_torch.configs.base import ArchConfig, get_config
 from repro_torch.configs.shapes import InputShape, get_shape
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import MeshSpec
-from repro_torch.models.transformer import Model
-from repro_torch.train.loop import TrainConfig, make_optimizer
+from repro_torch.models.layers import MESH_LATER
+from repro_torch.models.transformer import Model, mesh_ready
+from repro_torch.train.loop import (TrainConfig, make_optimizer,
+                                    make_train_step)
 
 META = torch.device("meta")
 
@@ -112,12 +120,35 @@ def serve_param_specs(model: Model, dtype: torch.dtype = torch.bfloat16):
     return _cast_as_stacked(model, dtype)
 
 
+def _not_on_mesh(cfg: ArchConfig):
+    def fn(*args):
+        raise NotImplementedError(f"{cfg.name} (window {cfg.sliding_window})"
+                                  f" on a mesh: {MESH_LATER}")
+    return fn
+
+
+def _step_fn(model: Model, kind: str, dtype: torch.dtype, tc=None,
+             param_specs=None):
+    """The step of ``kind`` over explicit arguments, as ``args`` orders
+    them."""
+    if not mesh_ready(model.cfg):
+        return _not_on_mesh(model.cfg)
+    if kind == "train":
+        return make_train_step(model, tc, param_specs=param_specs)
+    if kind == "prefill":
+        return lambda params, batch, cache: model.prefill(
+            batch, cache, dtype, params=params)
+    return lambda params, tokens, cache: model.decode_step(
+        tokens, cache, dtype, params=params)
+
+
 def build_case(arch: str, shape_name: str, mesh: MeshSpec,
                compute_dtype: torch.dtype = torch.bfloat16):
     """Everything one (arch x shape) step takes on a mesh.
 
-    Returns dict with: kind, args (meta trees), in_specs, donate, cfg,
-    variant flag, batch_axes.
+    Returns dict with: kind, fn (the step: ``fn(*args)`` on the placed
+    trees), args (meta trees), in_specs, donate, cfg, variant flag,
+    batch_axes.
     """
     cfg, variant = resolve_arch_for_shape(arch, shape_name)
     return build_case_from_cfg(cfg, shape_name, mesh, compute_dtype,
@@ -143,6 +174,7 @@ def build_case_from_cfg(cfg: ArchConfig, shape_name: str, mesh: MeshSpec,
         o_sh = sh.opt_shardings(opt, p_sh)
         b_sh = sh.batch_shardings(batch, mesh, batch_axes)
         return dict(kind="train", args=(params, opt, batch),
+                    fn=_step_fn(model, "train", compute_dtype, tc, p_sh),
                     in_specs=(p_sh, o_sh, b_sh), donate=(0, 1),
                     batch_axes=batch_axes, **common)
 
@@ -159,5 +191,6 @@ def build_case_from_cfg(cfg: ArchConfig, shape_name: str, mesh: MeshSpec,
         batch = decode_token_specs(cfg, shape)
         b_sh = sh.batch_shardings({"t": batch}, mesh, batch_axes)["t"]
     return dict(kind=shape.kind, args=(params, batch, cache),
+                fn=_step_fn(model, shape.kind, compute_dtype),
                 in_specs=(p_sh, b_sh, c_sh), donate=(2,),
                 batch_axes=batch_axes, **common)

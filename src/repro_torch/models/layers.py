@@ -14,6 +14,13 @@ sequences and prefill into a fresh cache through ``flash_mha`` (which also
 covers the JAX package's query-chunked branch for long sequences), one token
 over the cache through ``decode_mha`` (also over a sliding window's ring
 buffer).  Caches are updated in place.
+
+On a mesh (the parameters and the batch are DTensors, inside
+``utils.pjit_utils.activation_sharding``) the attention of the dense
+family pins its activations where the JAX package does and runs on each
+rank's local shards (``_mesh_attention``): flash over the rank's heads in
+training and prefill, each rank's slice of a sequence-sharded cache in
+decode, merged by the slices' log-sum-exps; the cache is never gathered.
 """
 from __future__ import annotations
 
@@ -23,14 +30,19 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.decode_attention import decode_mha
+from repro_torch.kernels.decode_attention import decode_mha, merge_weights
 from repro_torch.kernels.flash_attention import flash_mha
+from repro_torch.utils import pjit_utils as pj
+from repro_torch.utils.pjit_utils import BATCH, constrain
 
 Params = Mapping[str, torch.Tensor]
 
 #: cached attention the port does not run yet
 _CACHED_LATER = ("ROADMAP.md Queue 1 item 14e (a segment into a non-empty "
                  "cache, a prompt longer than the window's ring)")
+#: what the port does not run on a mesh yet
+MESH_LATER = ("ROADMAP.md Queue 1 item 24 (MoE, rwkv6, the hybrid, audio, "
+              "vlm and the window's ring on a mesh)")
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +73,30 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                scale: float = 0.02) -> torch.Tensor:
     return normal_init(gen, (vocab, dim), scale)
+
+
+# ---------------------------------------------------------------------------
+# products
+# ---------------------------------------------------------------------------
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``.  On a mesh in bf16 with ``w``'s input dim split over a
+    mesh dim that does not split ``x``'s rows (tensor parallelism: each
+    rank's product a part of the sum; where the rows are split there too,
+    FSDP gathers ``w`` instead), the parts are formed and added in f32 and
+    the sum rounded to bf16 once, as the one-device bf16 product
+    accumulates in f32 and rounds once: parts rounded to bf16 before the
+    sum would each add a rounding, which granite-3-2b's 40 layers carry
+    past the serving contract's bf16 limit (PERF.md, PR 23)."""
+    if not (pj.on_mesh(w) and x.dtype == torch.bfloat16
+            and any(p.is_shard(0) and not q.is_shard(0)
+                    for p, q in zip(w.placements, x.placements))):
+        return x @ w
+    from torch.distributed.tensor import Replicate
+    out = x.float() @ w.float()
+    out = out.redistribute(out.device_mesh, [
+        Replicate() if p.is_partial() else p for p in out.placements])
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -154,9 +190,19 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     b, s, _ = x.shape
     hd = cfg.head_dim
     dt = x.dtype
-    q = (x @ params["wq"].to(dt)).view(b, s, cfg.n_heads, hd)
-    k = (x @ params["wk"].to(dt)).view(b, s, cfg.n_kv_heads, hd)
-    v = (x @ params["wv"].to(dt)).view(b, s, cfg.n_kv_heads, hd)
+    q, k, v = (matmul(x, params[w].to(dt)) for w in ("wq", "wk", "wv"))
+    if pj.on_mesh(x):
+        # rows whole before the heads' view: DTensor may split H * hd in
+        # a way H does not divide
+        q, k, v = (constrain(t, BATCH, None, None) for t in (q, k, v))
+    q = q.view(b, s, cfg.n_heads, hd)
+    k = k.view(b, s, cfg.n_kv_heads, hd)
+    v = v.view(b, s, cfg.n_kv_heads, hd)
+    if pj.on_mesh(x):
+        out = _mesh_attention(q, k, v, positions, cfg, window, cache,
+                              cache_pos)
+        out = pj.pin_grad(out.reshape(b, s, cfg.n_heads * hd))
+        return matmul(out, params["wo"].to(dt)), cache
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -195,6 +241,192 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     return out @ params["wo"].to(dt), cache
 
 
+# ---------------------------------------------------------------------------
+# attention on a mesh
+# ---------------------------------------------------------------------------
+
+def _rows(x):
+    """``x``'s placements with every split but the batch dim's undone."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in x.placements)
+
+
+def _rope_local(q, k, positions, theta: float):
+    """RoPE on each rank's rows and heads (the tables are the rank's own,
+    from its positions); one call a tensor, so that each one's gradient
+    keeps its own layout."""
+    def rope(x):
+        return pj.local(lambda xl, pl: apply_rope(xl, pl, theta),
+                        x.placements, x, positions)
+    return rope(q), rope(k)
+
+
+def _kv_heads(first: int, n_q: int, group: int):
+    """The kv heads that query heads first .. first + n_q - 1 read (GQA:
+    head h reads h // group): a range, each read by n_q / len of them in
+    turn, where the kernel's mapping holds; else one per query head."""
+    idx = [(first + j) // group for j in range(n_q)]
+    uniq = sorted(set(idx))
+    if idx == [u for u in uniq for _ in range(n_q // len(uniq))]:
+        return uniq
+    return idx
+
+
+def _flash_local(q, k, v, window):
+    """Flash attention on each rank's heads: q's heads split over ``model``
+    where they divide (``constrain``), k and v split alike where theirs do,
+    else whole on each rank and cut to the heads its query heads read."""
+    from torch.distributed.tensor import Shard
+    r, n = pj.shard_index(q, 2)
+    h_loc = q.shape[2] // n
+    group = q.shape[2] // k.shape[2]
+    kv_split = any(isinstance(p, Shard) and p.dim == 2
+                   for p in k.placements)
+    heads = None if kv_split or n == 1 else _kv_heads(r * h_loc, h_loc,
+                                                      group)
+
+    def core(ql, kl, vl):
+        if heads is not None:
+            idx = torch.tensor(heads, device=kl.device)
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return flash_mha(ql, kl, vl, causal=True, window=window)
+
+    return pj.local(core, q.placements, q, k, v)
+
+
+def _write_prefill(cache, k, v, positions) -> None:
+    """Each rank writes its own T-slice of a segment that starts at slot 0
+    into its shard of the cache (rows as the cache splits them)."""
+    r, _ = pj.shard_index(cache["k"], 1)
+    rows = _rows(cache["k"])
+    mesh = cache["k"].device_mesh
+    k, v = k.redistribute(mesh, rows), v.redistribute(mesh, rows)
+    positions = positions.redistribute(mesh, rows)
+    s = k.shape[1]
+
+    @torch.no_grad()
+    def write(ck, cv, cp, kl, vl, pl):
+        t = ck.shape[1]
+        lo = r * t
+        n = max(0, min(s - lo, t))
+        if n:
+            ck[:, :n] = kl[:, lo:lo + n]
+            cv[:, :n] = vl[:, lo:lo + n]
+            cp[:, :n] = pl[:, lo:lo + n]
+
+    pj.local(write, None, cache["k"], cache["v"], cache["pos"], k, v,
+             positions)
+
+
+def _write_decode(cache, k, v, positions, slot) -> None:
+    """The new token's k, v and position into slot ``slot`` of each row,
+    on the one rank whose T-slice holds it (the others rewrite what they
+    hold)."""
+    r, _ = pj.shard_index(cache["k"], 1)
+    rows = _rows(cache["k"])
+    mesh = cache["k"].device_mesh
+    k = k.redistribute(mesh, rows)
+    v = v.redistribute(mesh, rows)
+    positions = positions.redistribute(mesh, rows)
+    slot = slot.redistribute(mesh, rows)
+
+    @torch.no_grad()
+    def write(ck, cv, cp, kl, vl, pl, sl):
+        t = ck.shape[1]
+        rel = sl.long() - r * t
+        hit = (rel >= 0) & (rel < t)
+        rel = rel.clamp(0, t - 1)
+        b = torch.arange(ck.shape[0], device=ck.device)
+        for buf, new in ((ck, kl[:, 0]), (cv, vl[:, 0]), (cp, pl[:, 0])):
+            old = buf[b, rel]
+            keep = hit.view(-1, *([1] * (old.dim() - 1)))
+            buf[b, rel] = torch.where(keep, new.to(buf.dtype), old)
+
+    pj.local(write, None, cache["k"], cache["v"], cache["pos"], k, v,
+             positions, slot)
+
+
+def _decode_sharded(q, k_c, v_c, lengths):
+    """One token over a cache sequence-sharded on ``model``: each rank
+    reads its own T-slice (lengths_r = clamp(len - r T_loc, 0, T_loc))
+    and returns its output and log-sum-exp; the ranks' log-sum-exps are
+    all-gathered, each output weighted by exp(lse_r - logsumexp_r lse_r)
+    (a rank with no live slot adds exactly nothing) and the sum
+    all-reduced.  The cache is never gathered."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    r, n = pj.shard_index(k_c, 1)
+    mesh = k_c.device_mesh
+    rows = _rows(k_c)
+    q = q.redistribute(mesh, rows)
+    lengths = lengths.redistribute(mesh, rows)
+
+    def read(ql, kl, vl, ll):
+        t = kl.shape[1]
+        lens = (ll.long() - r * t).clamp(0, t)
+        return decode_mha(ql, kl, vl, lens, return_lse=n > 1)
+
+    if n == 1:
+        return pj.local(read, rows, q, k_c, v_c, lengths)
+    t_dims = {i for i, p in enumerate(k_c.placements)
+              if isinstance(p, Shard) and p.dim == 1}
+    stacked = tuple(Shard(0) if i in t_dims else
+                    (Shard(p.dim + 1) if isinstance(p, Shard) else p)
+                    for i, p in enumerate(rows))
+    out, lse = pj.local(lambda *a: tuple(t[None] for t in read(*a)),
+                        (stacked, stacked), q, k_c, v_c, lengths)
+    gathered = tuple(Replicate() if i in t_dims else p
+                     for i, p in enumerate(stacked))
+    lse = lse.redistribute(mesh, gathered)
+    summed = tuple(Partial() if i in t_dims else p
+                   for i, p in enumerate(rows))
+
+    def weigh(ol, ll):
+        w = merge_weights(ll)[r][:, None, :, None]
+        return torch.where(w > 0, w * ol[0].float(), 0.0)
+
+    return pj.local(weigh, summed, out, lse)
+
+
+def _mesh_attention(q, k, v, positions, cfg: ArchConfig,
+                    window: Optional[int], cache, cache_pos):
+    """``attention_apply``'s core on a mesh, for the dense family: q, k, v
+    (B, S, H|Hkv, D) and positions (B, S) are DTensors; returns the
+    attention output (B, S, H, D) before the output projection."""
+    if window is not None:
+        raise NotImplementedError(f"a window on a mesh ({MESH_LATER})")
+    theta = cfg.rope_theta
+    s = q.shape[1]
+    if cache is not None and s == 1:
+        # decode reads keep the cache sequence-sharded (JAX's layers.py
+        # :291-298): q heads replicated, the cache on ('model' @ seq)
+        q = constrain(q, BATCH, None, None, None)
+        k = constrain(k, BATCH, None, None, None)
+        v = constrain(v, BATCH, None, None, None)
+        positions = constrain(positions, BATCH, None)
+        q, k = _rope_local(q, k, positions, theta)
+        _write_decode(cache, k, v, positions, cache_pos)
+        k_c = constrain(cache["k"].to(q.dtype), BATCH, "model", None, None)
+        v_c = constrain(cache["v"].to(q.dtype), BATCH, "model", None, None)
+        out = _decode_sharded(q, k_c, v_c, cache_pos + 1)
+        return constrain(out, BATCH, None, None, None).to(q.dtype)
+    if cache is not None:
+        t = cache["k"].shape[1]
+        if not (s == t or (s < t and bool(
+                (cache_pos.full_tensor() == 0).all()))):
+            raise NotImplementedError(
+                f"attention over a cache of {t} slots with {s} new tokens "
+                f"is not in the port yet ({_CACHED_LATER})")
+    q = constrain(q, BATCH, None, "model", None)
+    k = constrain(k, BATCH, None, "model", None)
+    v = constrain(v, BATCH, None, "model", None)
+    positions = constrain(positions, BATCH, None)
+    q, k = _rope_local(q, k, positions, theta)
+    if cache is not None:
+        _write_prefill(cache, k, v, positions)
+    return _flash_local(q, k, v, window)
+
+
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int,
                     window: Optional[int] = None,
                     dtype: torch.dtype = torch.bfloat16,
@@ -231,10 +463,10 @@ def mlp_apply(params: Params, x: torch.Tensor, cfg: ArchConfig
               ) -> torch.Tensor:
     dt = x.dtype
     if cfg.mlp in ("swiglu", "geglu"):
-        gate = x @ params["w_gate"].to(dt)
+        gate = matmul(x, params["w_gate"].to(dt))
         gate = (F.silu(gate) if cfg.mlp == "swiglu"
                 else F.gelu(gate, approximate="tanh"))
-        up = x @ params["w_up"].to(dt)
-        return (gate * up) @ params["w_down"].to(dt)
-    hidden = F.gelu(x @ params["w_in"].to(dt), approximate="tanh")
-    return hidden @ params["w_down"].to(dt)
+        up = matmul(x, params["w_up"].to(dt))
+        return matmul(gate * up, params["w_down"].to(dt))
+    hidden = F.gelu(matmul(x, params["w_in"].to(dt)), approximate="tanh")
+    return matmul(hidden, params["w_down"].to(dt))

@@ -32,6 +32,14 @@ in a Python loop (the JAX package's reduced-config path; its scan over
 stacked layers computes the same).  Attention goes through the Hopper
 kernels (their plain versions on CPU tensors); the MoE dispatch, the wkv
 and SSD scans are plain torch, as they are plain jnp there.
+
+On a mesh (``load_tree`` of DTensor leaves placed by ``launch.sharding``,
+a DTensor batch, inside ``utils.pjit_utils.activation_sharding``) the dense
+family runs the same methods: the activations pinned where the JAX package
+pins them (``constrain``), the embedding a masked lookup of each rank's
+slice of the vocabulary, the attention on each rank's shards
+(``layers._mesh_attention``).  The other families raise there (ROADMAP.md
+item 24).
 """
 from __future__ import annotations
 
@@ -47,7 +55,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R6
+from repro_torch.utils import pjit_utils as pj
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.pjit_utils import BATCH, constrain
 
 Params = Dict[str, Any]
 
@@ -84,7 +94,7 @@ def _attn_block_apply(p: Params, x, cfg: ArchConfig, positions, window,
                                      capacity_override=moe_capacity)
     else:
         ffn_out, aux = L.mlp_apply(p["mlp"], h, cfg), {}
-    return x + ffn_out, new_cache, aux
+    return constrain(x + ffn_out, BATCH, None, None), new_cache, aux
 
 
 def _rwkv_block_init(gen: torch.Generator, cfg: ArchConfig) -> Params:
@@ -184,6 +194,48 @@ def _cast(tree, dt: torch.dtype, name: str = ""):
     return tree
 
 
+def mesh_ready(cfg: ArchConfig) -> bool:
+    """Whether the port runs ``cfg`` on a mesh: the dense attention family
+    without a window (the rest is ROADMAP.md item 24)."""
+    return (cfg.family == "dense" and cfg.block_type == "attention"
+            and not cfg.is_moe and cfg.sliding_window is None)
+
+
+def _embed_on_mesh(table, tok, dtype: torch.dtype):
+    """The lookup of ``tok`` in a DTensor ``table`` (V, D).  The table is
+    gathered over every mesh dim but ``model`` (FSDP's gather at use) and
+    keeps its ``model`` split; the tokens are gathered over ``model``.  A
+    vocabulary split: each rank looks up the tokens of its own slice (the
+    others give exact zeros) and the result is Partial over ``model``, its
+    sum (the caller's ``constrain``) the lookup.  A split of D: each rank
+    looks up its columns.  DTensor's own ``aten.embedding`` fails on these
+    layouts."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    keep = {i: p.dim for i, p in enumerate(table.placements)
+            if isinstance(p, Shard) and names[i] == "model"}
+    table = table.redistribute(mesh, tuple(
+        table.placements[i] if i in keep else Replicate()
+        for i in range(mesh.ndim)))
+    if not pj.on_mesh(tok):
+        tok = pj.replicate(tok, mesh)
+    tok = constrain(tok, BATCH, None)
+    tok = tok.redistribute(mesh, tuple(Replicate() if i in keep else p
+                                       for i, p in enumerate(tok.placements)))
+    r = pj.shard_index(table, 0)[0]
+
+    def look(tab, t):
+        idx = t.long() - r * tab.shape[0]
+        hit = (idx >= 0) & (idx < tab.shape[0])
+        h = F.embedding(idx.clamp(0, tab.shape[0] - 1), tab).to(dtype)
+        return torch.where(hit[..., None], h, 0.0)
+
+    out = tuple((Partial() if keep[i] == 0 else Shard(tok.dim()))
+                if i in keep else p for i, p in enumerate(tok.placements))
+    return pj.local(look, out, table, tok)
+
+
 def _merge_aux(acc: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor]):
     for k, v in aux.items():
         acc[k] = acc.get(k, 0.0) + v
@@ -237,6 +289,32 @@ class Model(nn.Module):
             out["shared_proj"] = self.shared_proj
         return out
 
+    def load_tree(self, tree: Params) -> None:
+        """Replace every parameter by the leaf of ``tree`` (this model's
+        layout) at its place, under the same name and with the same
+        ``requires_grad``: a tree of DTensors (``launch.sharding.
+        distribute``) puts the model on a mesh."""
+        def assign(module: nn.Module, sub: Params):
+            for k, v in sub.items():
+                if isinstance(module, nn.ParameterDict):
+                    module[k] = nn.Parameter(
+                        v, requires_grad=module[k].requires_grad)
+                else:
+                    assign(module[k], v)
+
+        for blk, sub in zip(self.blocks, tree["blocks"]):
+            assign(blk, sub)
+        assign(self.final_norm, tree["final_norm"])
+        for name, key in (("embed_table", "embed"), ("lm_head", "lm_head"),
+                          ("shared_proj", "shared_proj")):
+            old = getattr(self, name)
+            if old is not None:
+                setattr(self, name, nn.Parameter(
+                    tree[key], requires_grad=old.requires_grad))
+        if self.shared is not None:
+            assign(self.shared, tree["shared"])
+        self._casts.clear()
+
     def weights(self, dtype: torch.dtype) -> Params:
         """The tree as the layers read it in ``dtype``: the parameters
         themselves in float32, else a copy with the matrices cast, made once
@@ -264,14 +342,27 @@ class Model(nn.Module):
             img = batch["image_embeds"].to(device=tok.device, dtype=dtype)
             h = torch.cat([img, F.embedding(tok.long(), W["embed"]).to(dtype)],
                           dim=1)
+        elif pj.on_mesh(W["embed"]):
+            h = _embed_on_mesh(W["embed"], tok, dtype)
         else:
             h = F.embedding(tok.long(), W["embed"]).to(dtype)
         b, s = h.shape[:2]
         start = batch.get("start_pos")
         if start is None:
             start = torch.zeros((b,), dtype=torch.int32, device=tok.device)
-        positions = start[:, None] + torch.arange(
-            s, dtype=torch.int32, device=tok.device)[None]
+        if pj.on_mesh(h):
+            if not pj.on_mesh(start):
+                start = pj.replicate(start, h.device_mesh)
+            start = constrain(start, BATCH)
+            positions = pj.local(
+                lambda st: st[:, None] + torch.arange(
+                    s, dtype=torch.int32, device=st.device)[None],
+                start.placements, start)
+        else:
+            positions = start[:, None] + torch.arange(
+                s, dtype=torch.int32, device=tok.device)[None]
+        # the JAX package's anchor: batch over the data axes
+        h = constrain(h, BATCH, None, None)
         return h, positions
 
     def _run_attn_stack(self, W, x, positions, caches, cache_pos,
@@ -327,6 +418,9 @@ class Model(nn.Module):
     def _backbone(self, W: Params, batch, caches, cache_pos,
                   dtype=torch.float32, moe_capacity=None):
         cfg = self.cfg
+        if pj.on_mesh(W["embed"]) and not mesh_ready(cfg):
+            raise NotImplementedError(f"{cfg.name} on a mesh "
+                                      f"({L.MESH_LATER})")
         x, positions = self.embed(W, batch, dtype)
         if cfg.block_type == "attention":
             x, new_caches, aux = self._run_attn_stack(
@@ -343,11 +437,13 @@ class Model(nn.Module):
         dt = h.dtype
         if cfg.family == "audio":
             out = h @ W["lm_head"].to(dt)
-            return out.reshape(*h.shape[:-1], cfg.n_codebooks,
-                               cfg.vocab_size)
-        if cfg.tie_embeddings:
-            return h @ W["embed"].to(dt).T
-        return h @ W["lm_head"].to(dt)
+            out = out.reshape(*h.shape[:-1], cfg.n_codebooks,
+                              cfg.vocab_size)
+        elif cfg.tie_embeddings:
+            out = L.matmul(h, W["embed"].to(dt).T)
+        else:
+            out = L.matmul(h, W["lm_head"].to(dt))
+        return constrain(out, BATCH, *([None] * (out.ndim - 2)), "model")
 
     def forward(self, W: Params, batch: Dict[str, torch.Tensor],
                 dtype: torch.dtype = torch.float32):
@@ -392,8 +488,11 @@ class Model(nn.Module):
                                    device=dev)}
 
     def prefill(self, batch: Dict[str, torch.Tensor], cache: Params,
-                dtype: torch.dtype = torch.bfloat16):
-        W = self.weights(dtype)
+                dtype: torch.dtype = torch.bfloat16,
+                params: Optional[Params] = None):
+        """``params``: the tree the layers read (this model's layout, any
+        dtype; the matrices are cast at use), ``weights(dtype)`` if None."""
+        W = self.weights(dtype) if params is None else params
         batch = dict(batch, start_pos=cache["pos"])
         h, new_blocks, _ = self._backbone(W, batch, cache["blocks"],
                                           cache["pos"], dtype)
@@ -401,12 +500,13 @@ class Model(nn.Module):
                                           "pos": cache["pos"] + h.shape[1]}
 
     def decode_step(self, tokens: torch.Tensor, cache: Params,
-                    dtype: torch.dtype = torch.bfloat16):
+                    dtype: torch.dtype = torch.bfloat16,
+                    params: Optional[Params] = None):
         """tokens: (B,) int (audio: (B, n_codebooks)).  MoE routing is
         dropless here (capacity = the batch's tokens), as in the JAX
-        package."""
+        package.  ``params`` as ``prefill``'s."""
         cfg = self.cfg
-        W = self.weights(dtype)
+        W = self.weights(dtype) if params is None else params
         b = tokens.shape[0]
         batch = {"tokens": tokens[:, None], "start_pos": cache["pos"]}
         if cfg.family == "vlm":

@@ -9,9 +9,12 @@ forward pass runs the flash attention kernel on the card; its backward
 pass recomputes the plain attention (``kernels.flash_attention.ops``), as
 the JAX package trains through plain attention under ``jax.checkpoint``.
 
-The JAX package's ``param_specs`` (the pjit pin of the bf16 weights to
-their masters' sharding) has no counterpart until the port runs its step
-on a mesh (ROADMAP.md item 22; the plan is ``launch.sharding``);
+On a mesh the same step runs on DTensor parameters, optimizer state and
+batch (placed by ``launch.sharding``; the dense family, inside
+``utils.pjit_utils.activation_sharding``): ``param_specs``, the JAX
+package's pin of the bf16 weights to their masters' sharding, redistributes
+each cast to its master's placements; the gradients come back in their
+parameters' placements and the clip's norm is the global one.
 ``ArchConfig.remat`` is not read
 (activations are kept, one layer's attention scores are recomputed).
 """
@@ -23,8 +26,10 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.launch.sharding import placements
 from repro_torch.models.transformer import Model
 from repro_torch.train.losses import next_token_loss
+from repro_torch.utils import pjit_utils as pj
 from repro_torch.train.optimizer import (AdamW, AdamWState, global_norm,
                                          tree_leaves, tree_map)
 
@@ -48,53 +53,92 @@ def make_optimizer(tc: TrainConfig) -> AdamW:
                  master_weights=tc.master_weights)
 
 
-def _cast_weights(params, dtype: torch.dtype):
+def _cast_weights(params, dtype: torch.dtype, param_specs: Any = None):
     """Matrices still in float32 cast to the compute dtype at step entry
     (differentiably: the gradient lands on the float32 leaf); float32
-    masters stay in the optimizer (classic mixed precision)."""
+    masters stay in the optimizer (classic mixed precision).  With
+    ``param_specs`` (the plan's spec tree of ``params``) a cast DTensor is
+    redistributed to its spec's placements, its master's: a no-op where
+    the cast kept them, so the FSDP gathers move the compute dtype."""
     if dtype == torch.float32:
         return params
-    return tree_map(lambda p: p.to(dtype)
-                    if p.dim() >= 2 and p.dtype == torch.float32 else p,
-                    params)
+
+    def one(p, spec):
+        if not (p.dim() >= 2 and p.dtype == torch.float32):
+            return p
+        c = p.to(dtype)
+        if spec is not None and pj.on_mesh(c):
+            c = c.redistribute(c.device_mesh, placements(
+                spec, pj.mesh_spec(c.device_mesh)))
+        return c
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, None if s is None else s[k])
+                    for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, None if s is None else s[i])
+                    for i, v in enumerate(t)]
+        return one(t, s)
+
+    return walk(params, param_specs)
 
 
 def _on_device(batch: Dict[str, Any], device) -> Dict[str, Tensor]:
-    return {k: (v if torch.is_tensor(v)
-                else torch.from_numpy(np.asarray(v))).to(device)
+    """The batch as tensors on ``device``; DTensors (a batch placed on a
+    mesh) stay where they are."""
+    return {k: v if pj.on_mesh(v) else
+            (v if torch.is_tensor(v)
+             else torch.from_numpy(np.asarray(v))).to(device)
             for k, v in batch.items()}
 
 
-def make_grad_fn(model: Model, tc: TrainConfig
+def _full(x: Tensor) -> Tensor:
+    """A metric as a plain tensor (a DTensor's whole value)."""
+    return x.full_tensor() if pj.on_mesh(x) else x
+
+
+def make_grad_fn(model: Model, tc: TrainConfig, param_specs: Any = None
                  ) -> Callable[..., Tuple[Any, Dict[str, Tensor]]]:
     """Returns grad_fn(params, batch) -> (grads, metrics): the gradients of
     the next-token loss with respect to ``params`` (a tree of the model's
-    layout) and the metrics ``ce``, ``loss`` and ``grad_norm``."""
+    layout; on a mesh, each in its parameter's placements) and the metrics
+    ``ce``, ``loss`` and ``grad_norm`` (plain tensors).  ``param_specs`` as
+    ``make_train_step``'s."""
     cfg = model.cfg
 
     def grad_fn(params, batch):
         batch = _on_device(batch, model.device)
-        logits, aux = model.forward(_cast_weights(params, tc.compute_dtype),
-                                    batch, dtype=tc.compute_dtype)
+        logits, aux = model.forward(
+            _cast_weights(params, tc.compute_dtype, param_specs), batch,
+            dtype=tc.compute_dtype)
         loss, metrics = next_token_loss(cfg, logits, batch, aux)
         leaves = tree_leaves(params)
         by_id = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
         grads = tree_map(lambda p: by_id[id(p)], params)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(grads)
+        grads = tree_map(lambda g, p: g.redistribute(p.device_mesh,
+                                                     p.placements)
+                         if pj.on_mesh(g) else g, grads, params)
+        metrics = {k: _full(v.detach()) for k, v in metrics.items()}
+        metrics["grad_norm"] = _full(global_norm(grads))
         return grads, metrics
 
     return grad_fn
 
 
-def make_train_step(model: Model, tc: TrainConfig
+def make_train_step(model: Model, tc: TrainConfig, param_specs: Any = None
                     ) -> Callable[..., Tuple[Any, AdamWState, Dict]]:
     """Returns train_step(params, opt_state, batch) -> (params, opt',
     metrics): one AdamW step.  ``params`` is ``model.tree()`` after
     ``init_train_state``; the optimizer writes the new values into those
-    tensors (and its state) in place and the same tree is returned."""
+    tensors (and its state) in place and the same tree is returned.
+
+    param_specs: the plan's spec tree of ``params``
+    (``launch.sharding.params_shardings``), for a step on a mesh: each
+    float32 matrix's cast to the compute dtype is pinned to its master's
+    placements, as the JAX package pins it."""
     opt = make_optimizer(tc)
-    grad_fn = make_grad_fn(model, tc)
+    grad_fn = make_grad_fn(model, tc, param_specs)
 
     def train_step(params, opt_state, batch):
         grads, metrics = grad_fn(params, batch)

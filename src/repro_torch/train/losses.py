@@ -13,14 +13,34 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.utils import pjit_utils as pj
 
 Tensor = torch.Tensor
 
-def _ce(logits: Tensor, labels: Tensor) -> Tensor:
-    """logits: (..., V) (any dtype), labels: (...) int.  Mean CE, float32."""
+def _ce_rows(logits: Tensor, labels: Tensor) -> Tensor:
     lse = torch.logsumexp(logits.float(), dim=-1)
     label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return torch.mean(lse - label_logit.float())
+    return lse - label_logit.float()
+
+
+def _ce(logits: Tensor, labels: Tensor) -> Tensor:
+    """logits: (..., V) (any dtype), labels: (...) int.  Mean CE, float32.
+
+    On a mesh (DTensors) the logits are gathered over the vocabulary first
+    (each rank keeps its rows whole) and the mean is the global one, a
+    replicated DTensor."""
+    if not pj.on_mesh(logits):
+        return torch.mean(_ce_rows(logits, labels))
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = logits.device_mesh
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in logits.placements)
+    logits = logits.redistribute(mesh, rows)
+    if not pj.on_mesh(labels):
+        labels = pj.replicate(labels, mesh)
+    labels = labels.redistribute(mesh, rows)
+    per = pj.local(_ce_rows, rows, logits, labels)
+    return torch.mean(per).redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 def next_token_loss(cfg: ArchConfig, logits: Tensor,

@@ -144,10 +144,41 @@ class SGD:
 
 
 def global_norm(tree: Params) -> Tensor:
-    """sqrt of the sum over the leaves of their float32 sums of squares."""
+    """sqrt of the sum over the leaves of their float32 sums of squares.
+    Over DTensor leaves, the norm of the whole tensors (``_mesh_norm``)."""
     with torch.no_grad():
+        leaves = tree_leaves(tree)
+        if leaves and _on_mesh(leaves[0]):
+            return _mesh_norm(leaves)
         return torch.sqrt(sum(torch.sum(x.float().square())
-                              for x in tree_leaves(tree)))
+                              for x in leaves))
+
+
+def _on_mesh(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _mesh_norm(leaves: List[Tensor]) -> Tensor:
+    """The global norm of DTensor leaves on one mesh, with one reduction:
+    each rank sums the squares of its shard of each leaf where it is the
+    first of the ranks that hold that shard (coordinate 0 on the mesh dims
+    the leaf is replicated over), and the ranks' sums are added.  A
+    replicated scalar DTensor."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = leaves[0].device_mesh
+    coord = mesh.get_coordinate()
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for x in leaves:
+        if any(p.is_partial() for p in x.placements):
+            x = x.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                      for p in x.placements])
+        if all(coord[i] == 0 for i, p in enumerate(x.placements)
+               if isinstance(p, Replicate)):
+            total = total + torch.sum(x.to_local().float().square())
+    total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                               run_check=False)
+    return torch.sqrt(total.redistribute(mesh, [Replicate()] * mesh.ndim))
 
 
 def clip_by_global_norm(grads: Params, max_norm: float) -> Params:

@@ -1,5 +1,6 @@
 """What every layer asks of ``torch.distributed``: whether this process
-writes a run's files, and a count of the collectives it calls."""
+writes a run's files, and a count of the collectives it calls (through
+``torch.distributed``'s functions, or DTensor's functional collectives)."""
 from __future__ import annotations
 
 import contextlib
@@ -64,3 +65,90 @@ def counted_collectives() -> Iterator[List[Collective]]:
     finally:
         for n, fn in saved.items():
             setattr(dist, n, fn)
+
+
+def _is_collective(func) -> bool:
+    """A collective of ``torch.distributed``'s ops (not the functional
+    collectives' waits and autograd wrappers)."""
+    name = func._overloadpacket.__name__
+    return (getattr(func, "namespace", "") in ("_c10d_functional",
+                                               "c10d_functional", "c10d")
+            and name != "wait_tensor" and not name.startswith("_"))
+
+
+@contextlib.contextmanager
+def dtensor_collectives() -> Iterator[Tuple[object, List[Collective]]]:
+    """DTensor's collectives inside (they bypass ``counted_collectives``'
+    wrappers): ``torch.distributed.tensor.debug.CommDebugMode``, whose
+    ``get_comm_counts`` counts them by kind, and the list of each call's
+    name and input shape and dtype, in call order."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    calls: List[Collective] = []
+
+    class Mode(CommDebugMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if out is not NotImplemented and _is_collective(func):
+                x = args[0] if args else None
+                calls.append(Collective(
+                    func._overloadpacket.__name__,
+                    tuple(getattr(x, "shape", ())),
+                    getattr(x, "dtype", None)))
+            return out
+
+    with Mode() as mode:
+        yield mode, calls
+
+
+def _group(group_name):
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return (_resolve_process_group(group_name)
+            if isinstance(group_name, str) else group_name)
+
+
+def _all_gather(input, group_size, group_name):
+    out = input.new_empty((input.shape[0] * group_size, *input.shape[1:]))
+    dist.all_gather_into_tensor(out, input.contiguous(),
+                                group=_group(group_name))
+    return out
+
+
+def _reduce_scatter(input, reduce_op, group_size, group_name):
+    out = input.new_empty((input.shape[0] // group_size, *input.shape[1:]))
+    avg = reduce_op.lower() == "avg"
+    op = dist.ReduceOp.SUM if avg else getattr(dist.ReduceOp,
+                                               reduce_op.upper())
+    dist.reduce_scatter_tensor(out, input.contiguous(), op=op,
+                               group=_group(group_name))
+    return out.div_(group_size) if avg else out
+
+
+def _all_to_all(input, output_split_sizes, input_split_sizes, group_name):
+    out = input.new_empty((sum(output_split_sizes), *input.shape[1:]))
+    dist.all_to_all_single(out, input.contiguous(), list(output_split_sizes),
+                           list(input_split_sizes), group=_group(group_name))
+    return out
+
+
+@contextlib.contextmanager
+def gloo_collectives() -> Iterator[None]:
+    """DTensor's all-gathers, reduce-scatters and all-to-alls through
+    ``torch.distributed``'s own calls on a gloo group, inside: the
+    installed torch's functional all-gather
+    (``_c10d_functional.all_gather_into_tensor``, the one DTensor calls)
+    crashes in its wait on a gloo group with CUDA tensors (a segmentation
+    fault, on any group; its all-reduce works), while
+    ``all_gather_into_tensor`` and the others carry CUDA tensors; on CPU
+    tensors it once aborted a rank (heap corruption).  Each routed call
+    completes before it returns.  For gloo ranks (several sharing one
+    card, or on the CPU); NCCL needs none of it."""
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for key in ("CPU", "CUDA"):
+        for name, fn in (("all_gather_into_tensor", _all_gather),
+                         ("reduce_scatter_tensor", _reduce_scatter),
+                         ("all_to_all_single", _all_to_all)):
+            lib.impl(name, fn, key)
+    try:
+        yield
+    finally:
+        lib._destroy()

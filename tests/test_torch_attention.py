@@ -268,3 +268,67 @@ def test_flash_bf16_rule_fails_a_misweighted_tile():
     assert _share(_flash_emulation(q, k, v), q, k, v) <= 1.0
     bad = _flash_emulation(q, k, v, tile_scale=(40, 0, 64, 1.05))
     assert _share(bad, q, k, v) > 1.5
+
+
+# -- the decode kernel's log-sum-exp ------------------------------------------
+
+def _decode_inputs(b, t, h, hkv, d, dtype, seed=0):
+    q, k, v = _arrays((b, h, d), (b, t, hkv, d), (b, t, hkv, d), seed=seed)
+    return [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_lse_of_the_plain_versions(dtype):
+    """``return_lse`` adds the log-sum-exp of each row's scaled scores over
+    its live slots (numpy's), -inf for a row with none; both plain versions
+    give it, and their outputs keep their bits."""
+    q, k, v = _decode_inputs(4, 96, 4, 2, 32, dtype)
+    lens = torch.tensor([0, 1, 50, 96])
+    out, lse = DA.decode_attention_ref(q, k, v, lens, return_lse=True)
+    assert torch.equal(out, DA.decode_attention_ref(q, k, v, lens))
+    qf, kf = q.float().numpy(), k.float().numpy().repeat(2, axis=2)
+    s = np.einsum("bhd,bthd->bht", qf, kf) / np.sqrt(32)
+    for i, n in enumerate(lens.tolist()):
+        if n == 0:
+            assert torch.isneginf(lse[i]).all()
+            continue
+        top = s[i, :, :n].max(-1)
+        want = top + np.log(np.exp(s[i, :, :n] - top[:, None]).sum(-1))
+        np.testing.assert_allclose(lse[i].numpy(), want, rtol=1e-5,
+                                   atol=1e-5)
+    out2, lse2 = DA.decode_attention_split_ref(q, k, v, lens, 64,
+                                               return_lse=True)
+    assert torch.equal(out2, DA.decode_attention_split_ref(q, k, v, lens,
+                                                           64))
+    torch.testing.assert_close(lse2[1:], lse[1:], rtol=1e-6, atol=1e-5)
+    assert torch.isneginf(lse2[0]).all() and not out2[0].any()
+
+
+@pytest.mark.parametrize("lens", [[0, 3, 20, 40], [1, 19, 21, 40]])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_merge_of_two_halves_is_one_call(dtype, lens):
+    """A cache cut into two T-halves, each half read with ``return_lse``
+    (lengths clamp(len - r T/2, 0, T/2)) and merged by ``merge_slices``,
+    equals one call over the whole cache; a half with no live slot (every
+    row of the first case's first two) adds exactly nothing."""
+    b, t, h, hkv, d = 4, 40, 4, 1, 32
+    q, k, v = _decode_inputs(b, t, h, hkv, d, dtype, seed=3)
+    lens = torch.tensor(lens)
+    half = t // 2
+    outs, lses = [], []
+    for r in range(2):
+        sl = slice(r * half, (r + 1) * half)
+        o, l_ = DA.decode_mha(q[:, None], k[:, sl], v[:, sl],
+                              (lens - r * half).clamp(0, half),
+                              return_lse=True)
+        outs.append(o)
+        lses.append(l_)
+    merged = DA.merge_slices(torch.stack(outs), torch.stack(lses))
+    whole = DA.decode_mha(q[:, None], k, v, lens)
+    live = lens > 0
+    tol = {"float32": 1e-6, "bfloat16": 2e-2}[dtype]
+    torch.testing.assert_close(merged[live].float(), whole[live].float(),
+                               rtol=0, atol=tol)
+    assert not merged[~live].any()
+    w = DA.merge_weights(torch.stack(lses))
+    assert (w[:, lens <= half][1] == 0).all()

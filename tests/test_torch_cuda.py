@@ -387,6 +387,61 @@ def test_decode_kernel_ignores_slots_past_lengths_bitwise():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 112, 128])
+def test_decode_kernel_lse_matches_plain_version(d, dtype):
+    """``return_lse``: each row's log-sum-exp against the plain split and
+    merge's, within the output's f32 tolerance 2e-5 x max(1, |lse|), -inf
+    exactly where a row has no live slot (length 0, output exactly 0); the
+    output is the one without ``return_lse``, bit for bit."""
+    dev = _card()
+    b, t, h, hkv = 6, 600, 8, 2
+    q = _normal((b, 1, h, d), dev, dtype, 0)
+    k = _normal((b, t, hkv, d), dev, dtype, 1)
+    v = _normal((b, t, hkv, d), dev, dtype, 2)
+    lens = torch.tensor([0, 1, 63, 300, 599, 600], dtype=torch.int32,
+                        device=dev)
+    DA.reset_counts()
+    out, lse = DA.decode_mha(q, k, v, lens, return_lse=True)
+    plain = DA.decode_mha(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert DA.COUNTS["decode_attention"] == 2
+    assert torch.equal(out, plain)
+    chunk = DA.split_plan(t, b, hkv, torch.cuda.get_device_properties(dev)
+                          .multi_processor_count)
+    _, want = DA.decode_attention_split_ref(q[:, 0], k, v, lens, chunk,
+                                            return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    dead = torch.isneginf(want)
+    assert torch.equal(torch.isneginf(lse), dead) and dead[0].all()
+    assert not dead[1:].any() and not out[0].any()
+    err = (lse[~dead] - want[~dead]).abs()
+    assert (err <= 2e-5 * want[~dead].abs().clamp_min(1.0)).all(), \
+        float(err.max())
+
+
+@pytest.mark.cuda
+def test_decode_kernel_merges_over_two_halves_of_a_cache():
+    """Two calls over the two T-halves of a cache, merged by their
+    log-sum-exps (``merge_slices``), equal one call over the whole cache:
+    the sequence-sharded decode of the mesh, on one card."""
+    dev = _card()
+    b, t, h, hkv, d = 4, 1040, 15, 5, 64
+    q = _normal((b, 1, h, d), dev, seed=0)
+    k = _normal((b, t, hkv, d), dev, seed=1)
+    v = _normal((b, t, hkv, d), dev, seed=2)
+    lens = torch.tensor([1, 520, 521, 1040], dtype=torch.int32, device=dev)
+    half = t // 2
+    parts = [DA.decode_mha(q, k[:, r * half:(r + 1) * half].contiguous(),
+                           v[:, r * half:(r + 1) * half].contiguous(),
+                           (lens - r * half).clamp(0, half),
+                           return_lse=True) for r in range(2)]
+    merged = DA.merge_slices(torch.stack([o for o, _ in parts]),
+                             torch.stack([l for _, l in parts]))
+    _close(merged[:, 0], DA.decode_mha(q, k, v, lens)[:, 0])
+
+
+@pytest.mark.cuda
 def test_attention_wrappers_check_their_inputs():
     dev = _card()
     q = _normal((1, 64, 2, 48), dev)

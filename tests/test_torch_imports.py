@@ -36,7 +36,8 @@ for sub in ("configs.smollm_360m", "models.layers", "models.transformer",
             "examples.train_lm", "examples.sharded", "federated",
             "federated.runtime", "federated.sharding", "utils.dist",
             "configs.shapes", "launch.mesh", "launch.sharding",
-            "launch.specs", "launch.roofline", "launch.dryrun"):
+            "launch.specs", "launch.roofline", "launch.dryrun",
+            "utils.pjit_utils"):
     assert "repro_torch." + sub in names, sub
 print(len(names))
 """

@@ -416,7 +416,7 @@ def test_run_case_record(tmp_path):
     assert rec["fits_arguments"] is None
     for key in ("temp_bytes", "flops_hlo", "collectives"):
         assert rec[key] is None
-    assert "22" in rec["note"] and "23" in rec["note"]
+    assert "item 23" in rec["note"] and "22" not in rec["note"]
     assert rec["model_flops"] == roofline.model_flops(
         get_config("zamba2-7b"), "decode_32k")
     assert (tmp_path / "zamba2-7b__decode_32k__pod16x16.json").exists()

@@ -1,0 +1,136 @@
+"""``repro_torch.utils.pjit_utils`` against the JAX package's
+``repro.utils.pjit_utils``, on the CPU.
+
+JAX's ``constrain`` resolves a spec to a ``PartitionSpec`` and hands it to
+``jax.lax.with_sharding_constraint``; the test patches that function to
+return the spec it is given, and runs JAX's ``constrain`` under its
+``activation_sharding`` with a stand-in mesh (``axis_names`` and
+``devices.shape``, as ``test_torch_launch.py`` stands in for the
+production meshes), so no 512-device backend is made.  The grid: every
+spec the dense family's call sites pass (``models/layers.py`` and
+``models/transformer.py`` of both packages, and the port's own pins of the
+heads, positions and tokens), at each arch's widths and each shape of
+``configs/shapes.py``, on pod16x16, pod2x16x16 and 2 x 2, with the batch
+axes ``pick_batch_axes`` picks for the shape.  Specs are compared exactly.
+"""
+import types
+from unittest import mock
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.utils.pjit_utils as jpj
+from repro_torch.configs import get_config
+from repro_torch.configs.archs import ALL_ARCHS
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import sharding as sh
+from repro_torch.utils import pjit_utils as pj
+
+MESHES = {"pod16x16": (("data", "model"), (16, 16)),
+          "pod2x16x16": (("pod", "data", "model"), (2, 16, 16)),
+          "2x2": (("data", "model"), (2, 2))}
+
+
+def _call_sites(cfg, shape):
+    """(shape, spec with the port's BATCH) of every constraint the dense
+    family's step passes at ``cfg``'s widths and ``shape``'s size."""
+    b, s = shape.global_batch, shape.seq_len
+    h, hkv, d, v = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.vocab_size
+    B = pj.BATCH
+    return [
+        ((b, s, cfg.d_model), (B, None, None)),          # embed, block out
+        ((b, s, v), (B, None, "model")),                 # logits
+        ((b, v), (B, "model")),                          # last-token logits
+        ((b, s, h, d), (B, None, "model", None)),        # q heads (port)
+        ((b, s, hkv, d), (B, None, "model", None)),      # kv heads (port)
+        ((b, s), (B, None)),                             # positions, tokens
+        ((b,), (B,)),                                    # start positions
+        ((b, s, h * d), (B, None, None)),                # projections (port)
+        ((b, s, h, d), (B, "model", None, None)),        # k, v repeated
+        ((b, h, 1, s), (B, None, None, "model")),        # scores, probs
+        ((b, 1, h, d), (B, None, None, None)),           # decode q and out
+        ((b, s, hkv, d), (B, "model", None, None)),      # the cache read
+    ]
+
+
+def _jax_spec(mesh_name, axes, shape, spec):
+    names, sizes = MESHES[mesh_name]
+    mesh = types.SimpleNamespace(axis_names=names,
+                                 devices=np.empty(sizes, np.int8))
+    jspec = tuple(jpj.BATCH if e is pj.BATCH else e for e in spec)
+    with mock.patch.object(jax.lax, "with_sharding_constraint",
+                           lambda x, p: p):
+        with jpj.activation_sharding(mesh, axes):
+            got = jpj.constrain(types.SimpleNamespace(shape=shape), *jspec)
+            ctx = (jpj.batch_shard_count(), jpj.current_batch_axes())
+    return _normal(tuple(got)) + (None,) * (len(shape) - len(got)), ctx
+
+
+def _normal(spec):
+    return tuple(None if e is None else
+                 ((e,) if isinstance(e, str) else tuple(e)) for e in spec)
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_resolve_spec_matches_jax_constrain(arch, mesh_name):
+    cfg = get_config(arch)
+    names, sizes = MESHES[mesh_name]
+    tm = tmesh.MeshSpec(names, sizes)
+    n = 0
+    for shape in SHAPES.values():
+        axes = sh.pick_batch_axes(tm, shape.global_batch,
+                                  allow_model=shape.kind == "train")
+        for dims, spec in _call_sites(cfg, shape):
+            want, ctx = _jax_spec(mesh_name, axes, dims, spec)
+            got = pj.resolve_spec(dims, spec, names, tm.axis_sizes, axes)
+            assert _normal(got) == want, (shape.name, dims, spec)
+            with pj.activation_sharding(tm, axes):
+                assert (pj.batch_shard_count(),
+                        pj.current_batch_axes()) == ctx
+            n += 1
+    assert n == len(SHAPES) * 12
+
+
+@pytest.mark.parametrize("axes", [(), ("data",), ("model",),
+                                  ("data", "model"), ("pod", "data")])
+def test_batch_shard_count_matches_jax(axes):
+    for name, (names, sizes) in MESHES.items():
+        mesh = types.SimpleNamespace(axis_names=names,
+                                     devices=np.empty(sizes, np.int8))
+        with jpj.activation_sharding(mesh, axes):
+            want = jpj.batch_shard_count()
+        with pj.activation_sharding(tmesh.MeshSpec(names, sizes), axes):
+            assert pj.batch_shard_count() == want, name
+    assert pj.batch_shard_count() == jpj.batch_shard_count() == 1
+    assert pj.current_batch_axes() is None
+
+
+def test_resolution_rules():
+    """BATCH stands for the batch axes; a used axis is dropped from later
+    dims; only a prefix of candidates whose product divides is kept."""
+    names, sizes = ("pod", "data", "model"), {"pod": 2, "data": 16,
+                                              "model": 16}
+    r = pj.resolve_spec
+    assert r((64, 8), (pj.BATCH, "model"), names, sizes,
+             ("pod", "data")) == (("pod", "data"), None)
+    assert r((512, 32), (pj.BATCH, "model"), names, sizes,
+             ("pod", "data", "model")) == (("pod", "data", "model"), None)
+    assert r((2, 32), (pj.BATCH, "model"), names, sizes,
+             ("pod", "data")) == (("pod",), ("model",))
+    assert r((1, 15), (pj.BATCH, "model"), names, sizes,
+             ("pod", "data")) == (None, None)
+    assert r((4, 48), (None, ("data", "model")), names, sizes, ()) == (
+        None, ("data",))
+
+
+def test_constrain_off_a_mesh_is_the_identity():
+    x = torch.randn(4, 3)
+    assert pj.constrain(x, pj.BATCH, None) is x
+    with pj.activation_sharding(tmesh.make_test_mesh(2, 2), ("data",)):
+        assert pj.constrain(x, pj.BATCH, "model") is x
+        assert pj.batch_shard_count() == 2
+    assert pj.constrain(x, pj.BATCH, "model") is x
