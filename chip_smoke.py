@@ -135,14 +135,22 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 11. last (its four extra processes on the card perturb no timing), the
    sharded LM step (``phase_mesh_step``) on a 2 x 2 mesh of four gloo
    ranks sharing the card (spawned ``chip_smoke.py --mesh-rank``):
-   SmolLM-360M at full width, two AdamW steps in bf16 with f32 masters at
-   B 4 x 512 (batch over ('data', 'model')) and two in f32 at B 2 x 512,
-   a generate of 8 tokens at B 8 after a 1024-token prompt in f32 and
-   bf16, and granite-3-2b's (heads split over 'model') at B 2 x 256 in
-   bf16, each held against the same run on one device of the card (ce,
-   grad_norm, logits, tokens), flash and decode launched on every rank,
-   no decode step gathering the sequence-sharded cache, DTensor's
-   collectives a step counted.
+   SmolLM-360M at full width (16 of 32 layers), two AdamW steps in bf16
+   with f32 masters at B 4 x 512 (batch over ('data', 'model')) and two
+   in f32 at B 2 x 512, a generate of 8 tokens at B 8 after a 1024-token
+   prompt in f32 and bf16, and granite-3-2b's (heads split over 'model')
+   at B 2 x 256 in bf16, each held against the same run on one device of
+   the card (ce, grad_norm, logits, tokens), flash and decode launched on
+   every rank, no decode step gathering the sequence-sharded cache,
+   DTensor's collectives a step counted;
+12. then the same for the other attention-block families and the
+   window's ring (``phase_mesh_families``): granite-moe-1b-a400m (two
+   bf16 AdamW steps at B 4 x 512, 4 routing groups; a generate of B 2 x
+   256 in f32 and bf16), mixtral-8x7b (1 of 32 layers, B 1 x 4096
+   filling its 4096-slot ring, 2,048 slots a rank), musicgen-medium and
+   llava-next-mistral-7b (2 of 32 layers, 1,152 image embeds) in bf16,
+   each against the one-device run under the same context (MoE in bf16
+   on the one-device run's expert choices, its own flips counted).
 
 It prints the kernel table as JSON, the card line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Exits nonzero,
@@ -3333,40 +3341,72 @@ def phase_dryrun():
 MESH_RANKS = 4
 MESH_TIMEOUT_S = 600
 MESH_SEQ = 512
-#: (arch, dtype, batch): two AdamW steps each; B 4 puts the batch over
-#: ('data', 'model'), B 2 over ('data',) with the weights over 'model'
-MESH_TRAIN = (("smollm-360m", torch.bfloat16, 4),
-              ("smollm-360m", torch.float32, 2))
+#: (arch, layers run (None: all), dtype, batch): MESH_TRAIN_STEPS AdamW
+#: steps each; B 4 puts the batch over ('data', 'model'), B 2 over
+#: ('data',) with the weights over 'model'.  SmolLM-360M runs 16 of its
+#: 32 layers, to keep the two mesh phases within the script's time
+MESH_TRAIN = (("smollm-360m", 16, torch.bfloat16, 4),
+              ("smollm-360m", 16, torch.float32, 2))
 MESH_TRAIN_STEPS = 2
-#: (arch, batch, prompt, dtypes) of one generate each
-MESH_GEN = (("smollm-360m", 8, 1024, (torch.float32, torch.bfloat16)),
-            ("granite-3-2b", 2, 256, (torch.bfloat16,)))
+#: (arch, layers run, batch, prompt, dtypes) of one generate each (vlm:
+#: the text after the image embeds; audio: frames of n_codebooks tokens)
+MESH_GEN = (("smollm-360m", 16, 8, 1024, (torch.float32, torch.bfloat16)),
+            ("granite-3-2b", None, 2, 256, (torch.bfloat16,)))
 MESH_NEW = 8
+#: ``phase_mesh_families``' runs, as MESH_TRAIN and MESH_GEN.  Depth is cut
+#: only for the phase's time: mixtral-8x7b at 1 of 32 layers (1.6 B
+#: params), llava at 2 of 32.  granite-moe trains at B 4 x 512 over
+#: ('data', 'model'): 4 routing groups.
+MESH_FAMILY_TRAIN = (("granite-moe-1b-a400m", None, torch.bfloat16, 4),)
+MESH_FAMILY_GEN = (
+    ("granite-moe-1b-a400m", None, 2, 256, (torch.float32, torch.bfloat16)),
+    ("mixtral-8x7b", 1, 1, 4096, (torch.float32, torch.bfloat16)),
+    ("musicgen-medium", None, 2, 256, (torch.bfloat16,)),
+    ("llava-next-mistral-7b", 2, 1, 128, (torch.bfloat16,)))
+MESH_PHASES = {"step": (MESH_TRAIN, MESH_GEN),
+               "families": (MESH_FAMILY_TRAIN, MESH_FAMILY_GEN)}
 #: mesh step vs one device: ce and grad_norm relative (bf16: ce only, the
 #: train contract's)
 MESH_TRAIN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
 
 
-def _mesh_tokens(vocab, b, s, seed):
+def _gen_runs(gens):
+    """MESH_GEN's entries one (arch, layers, batch, prompt, dtype) a run."""
+    return [(arch, depth, b, prompt, dtype)
+            for arch, depth, b, prompt, dtypes in gens for dtype in dtypes]
+
+
+def _mesh_cfg(arch, depth):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def _mesh_batch(cfg, b, s, seed):
+    """A batch from ``seed``: tokens (B, S) (audio: (B, S, C)); vlm also its
+    ``frontend_tokens`` image embeddings (B, P, D)."""
     rng = np.random.default_rng(seed)
-    return torch.from_numpy(rng.integers(0, vocab, (b, s))).to(
-        DEV, torch.int32)
+    shape = (b, s, cfg.n_codebooks) if cfg.family == "audio" else (b, s)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, shape)).to(DEV, torch.int32)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)).to(DEV)
+    return batch
 
 
-def _mesh_model(arch, mesh=None, dm=None, mode="train", tc=None):
-    """The arch at full width from seed 0 on the card; on a mesh its
+def _mesh_model(cfg, mesh=None, dm=None, mode="train", tc=None):
+    """``cfg`` at full width from seed 0 on the card; on a mesh its
     parameters placed by the plan (``mode``), the ranks one after another
     so that only one holds a whole model at a time."""
     import torch.distributed as dist
-    from repro_torch.configs import get_config
     from repro_torch.launch import sharding as sh
     from repro_torch.models import build_model
     from repro_torch.train.loop import init_train_state
-    cfg = get_config(arch)
     if dm is None:
         model = build_model(cfg, device=DEV, seed=0)
         state = init_train_state(model, tc)[1] if tc else None
-        return cfg, model, state
+        return model, state
     model = state = None
     for r in range(dist.get_world_size()):
         if r == dist.get_rank():
@@ -3379,35 +3419,97 @@ def _mesh_model(arch, mesh=None, dm=None, mode="train", tc=None):
                                       mesh, dm)
             torch.cuda.empty_cache()
         dist.barrier()
-    return cfg, model, state
+    return model, state
 
 
-def mesh_train_run(arch, dtype, b, mesh=None, dm=None):
-    """MESH_TRAIN_STEPS AdamW steps of ``arch`` at B ``b`` x MESH_SEQ: on one
-    device (``dm`` None) or through ``build_case``'s step on the mesh.
-    Per step: ce, grad_norm and wall (s); on the mesh, DTensor's
-    collectives of the first step by kind (``CommDebugMode``, whose
-    dispatch hook slows that step; the later steps run without it)."""
+def _group_slice(dm, axes, groups, local):
+    """The slice of a call's ``groups`` routing groups that this rank holds
+    ``local`` of: its index over the batch axes, outermost first."""
+    if groups == local:
+        return slice(None)
+    coord, names = dm.get_coordinate(), dm.mesh_dim_names
+    r = 0
+    for a in axes:
+        i = names.index(a)
+        r = r * dm.size(i) + coord[i]
+    return slice(r * local, (r + 1) * local)
+
+
+@contextlib.contextmanager
+def rank_routing(calls, replay, tally, dm, axes):
+    """``models.moe.top_k`` on a rank, held call by call on its own groups
+    against ``calls``, an iterator over the one-device run's choices (each
+    (G, Tg, k)): the
+    tokens whose expert set differs are counted into ``tally``, and with
+    ``replay`` the one-device choices are returned with this rank's own
+    probabilities for them (bf16 rounds the router's logits, so a near-tie
+    can fall either way on the two runs)."""
+    from repro_torch.models import moe
+    saved = moe.top_k
+
+    def top_k(probs, k):
+        vals, idx = saved(probs, k)
+        full = torch.as_tensor(next(calls), device=probs.device).long()
+        want = full[_group_slice(dm, axes, full.shape[0], probs.shape[0])]
+        tally["flips"] += routing_flips([idx], [want])
+        tally["tokens"] += int(np.prod(idx.shape[:-1]))
+        if replay:
+            return probs.gather(-1, want), want
+        return vals, idx
+
+    moe.top_k = top_k
+    try:
+        yield
+    finally:
+        moe.top_k = saved
+
+
+def _routing(cfg, dtype, record, calls, dm, axes, tally):
+    """One device: ``moe_routing`` recording into ``record``; a rank:
+    ``rank_routing`` on ``calls`` (replayed in bf16); nothing for a model
+    without experts."""
+    if not cfg.is_moe:
+        return contextlib.nullcontext()
+    if dm is None:
+        return moe_routing(record=record)
+    return rank_routing(calls, dtype == torch.bfloat16, tally, dm, axes)
+
+
+def mesh_train_run(arch, dtype, b, depth=None, mesh=None, dm=None, ref=None):
+    """MESH_TRAIN_STEPS AdamW steps of ``arch`` (``depth`` layers, None:
+    all) at B ``b`` x MESH_SEQ inside ``activation_sharding`` on ``mesh``
+    (the 2 x 2 test mesh if None) with the batch axes ``pick_batch_axes``
+    picks, so that MoE routes in as many groups on one device as on the
+    mesh: on one device (``dm`` None; MoE's expert choices returned as
+    ``routes``) or through ``build_case``'s step on the mesh (MoE held on
+    ``ref``'s choices, ``rank_routing``).  Per step: ce, grad_norm and wall
+    (s); on the mesh, DTensor's collectives of the first step by kind
+    (``CommDebugMode``, whose dispatch hook slows that step; the later
+    steps run without it)."""
     from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.specs import build_case_from_cfg
     from repro_torch.train.loop import TrainConfig, make_train_step
     from repro_torch.utils.dist import dtensor_collectives
     from repro_torch.utils.pjit_utils import activation_sharding
     tc = TrainConfig(compute_dtype=dtype,
                      master_weights=dtype != torch.float32)
-    cfg, model, opt = _mesh_model(arch, mesh, dm, "train", tc)
+    cfg = _mesh_cfg(arch, depth)
+    mesh = mesh or make_test_mesh(2, 2)
+    model, opt = _mesh_model(cfg, mesh, dm, "train", tc)
     params = model.tree()
+    axes = sh.pick_batch_axes(mesh, b, allow_model=True)
     if dm is None:
-        step, ctx, axes = make_train_step(model, tc), contextlib.nullcontext, ()
+        step = make_train_step(model, tc)
     else:
-        case = build_case_from_cfg(cfg, "train_4k", mesh, compute_dtype=dtype)
-        axes = sh.pick_batch_axes(mesh, b, allow_model=True)
-        step = case["fn"]
-        ctx = lambda: activation_sharding(mesh, axes, dm)  # noqa: E731
+        step = build_case_from_cfg(cfg, "train_4k", mesh,
+                                   compute_dtype=dtype)["fn"]
     out = dict(ce=[], grad_norm=[], wall_s=[], collectives={},
                batch_axes=list(axes))
+    routes, tally = [], dict(flips=0, tokens=0)
+    calls = iter(ref or ())
     for i in range(MESH_TRAIN_STEPS):
-        batch = {"tokens": _mesh_tokens(cfg.vocab_size, b, MESH_SEQ, 100 + i)}
+        batch = _mesh_batch(cfg, b, MESH_SEQ, 100 + i)
         if dm is not None:
             batch = sh.distribute(batch, sh.batch_shardings(batch, mesh,
                                                             axes), mesh, dm)
@@ -3415,7 +3517,8 @@ def mesh_train_run(arch, dtype, b, mesh=None, dm=None):
                    else contextlib.nullcontext((None, None)))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with ctx(), counted as (mode, _):
+        with activation_sharding(mesh, axes, dm), counted as (mode, _), \
+                _routing(cfg, dtype, routes, calls, dm, axes, tally):
             params, opt, metrics = step(params, opt, batch)
             torch.cuda.synchronize()
         out["wall_s"].append(time.perf_counter() - t0)
@@ -3424,59 +3527,77 @@ def mesh_train_run(arch, dtype, b, mesh=None, dm=None):
         if mode is not None:
             out["collectives"] = {str(k).split(".")[-1]: v for k, v in
                                   mode.get_comm_counts().items()}
+    if cfg.is_moe:
+        if dm is None:
+            out["routes"] = [r.cpu().numpy().astype(np.int16)
+                             for r in routes]
+        else:
+            out["routing"] = tally
     del model, params, opt
     torch.cuda.empty_cache()
     return out
 
 
-def mesh_generate_run(arch, b, prompt, dtype, fed=None, mesh=None, dm=None):
-    """Prefill ``prompt`` tokens, then MESH_NEW - 1 decode steps (fed the
-    tokens ``fed``, else greedy): the logits of each step, the tokens fed
-    and the wall; on the mesh, one more decode step after the timed ones
-    with DTensor's collectives recorded (``utils.dist.
-    dtensor_collectives``): their count by kind, the largest all-gather's
-    elements and the all-gathers of as many elements as a rank's shard of
-    a layer's k or v cache (there must be none)."""
+def mesh_generate_run(arch, b, prompt, dtype, fed=None, depth=None,
+                      mesh=None, dm=None, ref=None):
+    """Prefill ``prompt`` tokens (a vlm's after its image embeds), then
+    MESH_NEW - 1 decode steps (fed the tokens ``fed``, else greedy), inside
+    ``activation_sharding`` as ``mesh_train_run``'s: the logits of each
+    step, the tokens fed, the wall, the cache's slots and a rank's share of
+    them, and MoE's expert choices (one device) or their flips against
+    ``ref`` (the mesh, replayed in bf16); on the mesh, one more decode step
+    after the timed ones with DTensor's collectives recorded (``utils.
+    dist.dtensor_collectives``): their count by kind, the largest
+    all-gather's elements and the all-gathers of as many elements as a
+    rank's shard of a layer's k or v cache (there must be none)."""
     from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.specs import build_case_from_cfg
     from repro_torch.utils.dist import dtensor_collectives
     from repro_torch.utils.pjit_utils import activation_sharding
-    cfg, model, _ = _mesh_model(arch, mesh, dm, "serve")
-    max_len = prompt + MESH_NEW + 8
-    tokens = _mesh_tokens(cfg.vocab_size, b, prompt, 7)
+    cfg = _mesh_cfg(arch, depth)
+    mesh = mesh or make_test_mesh(2, 2)
+    model, _ = _mesh_model(cfg, mesh, dm, "serve")
+    prefix = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    max_len = prefix + prompt + MESH_NEW + 8
+    batch = _mesh_batch(cfg, b, prompt, 7)
     params = model.weights(dtype)
     cache = model.init_cache(b, max_len, dtype=dtype)
+    axes = sh.pick_batch_axes(mesh, b, allow_model=False)
     if dm is None:
         prefill = lambda p, x, c: model.prefill(x, c, dtype)  # noqa: E731
         decode = lambda p, t, c: model.decode_step(t, c, dtype)  # noqa: E731
-        ctx = contextlib.nullcontext
     else:
         cache = sh.distribute(cache, sh.cache_shardings(cache, cfg, mesh),
+                              mesh, dm)
+        batch = sh.distribute(batch, sh.batch_shardings(batch, mesh, axes),
                               mesh, dm)
         prefill = build_case_from_cfg(cfg, "prefill_32k", mesh,
                                       compute_dtype=dtype)["fn"]
         decode = build_case_from_cfg(cfg, "decode_32k", mesh,
                                      compute_dtype=dtype)["fn"]
-        axes = sh.pick_batch_axes(mesh, b, allow_model=False)
-        ctx = lambda: activation_sharding(mesh, axes, dm)  # noqa: E731
     logits, sent, counts, largest, cache_gathers = [], [], {}, 0, []
-    shard = int(np.prod(cache["blocks"][0]["k"].to_local().shape
-                        if dm is not None else 0))
+    k0 = cache["blocks"][0]["k"]
+    local = k0.to_local() if dm is not None else k0
+    shard = int(np.prod(local.shape) if dm is not None else 0)
+    routes, tally = [], dict(flips=0, tokens=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with ctx():
-        out, cache = prefill(params, {"tokens": tokens}, cache)
-        for i in range(MESH_NEW):
-            full = out.full_tensor() if hasattr(out, "full_tensor") else out
-            logits.append(full.float().cpu().numpy())
-            if i == MESH_NEW - 1:
-                break
-            tok = (torch.from_numpy(fed[i]).to(DEV) if fed is not None
-                   else full.argmax(-1).to(torch.int32))
-            sent.append(tok.cpu().numpy())
-            out, cache = decode(params, tok, cache)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    with activation_sharding(mesh, axes, dm):
+        with _routing(cfg, dtype, routes, iter(ref or ()), dm, axes, tally):
+            out, cache = prefill(params, batch, cache)
+            for i in range(MESH_NEW):
+                full = (out.full_tensor() if hasattr(out, "full_tensor")
+                        else out)
+                logits.append(full.float().cpu().numpy())
+                if i == MESH_NEW - 1:
+                    break
+                tok = (torch.from_numpy(fed[i]).to(DEV) if fed is not None
+                       else full.argmax(-1).to(torch.int32))
+                sent.append(tok.cpu().numpy())
+                out, cache = decode(params, tok, cache)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         if dm is not None:
             with dtensor_collectives() as (mode, calls):
                 decode(params, tok, cache)
@@ -3486,23 +3607,41 @@ def mesh_generate_run(arch, b, prompt, dtype, fed=None, mesh=None, dm=None):
                        if "gather" in c.name]
             largest = max([0] + gathers)
             cache_gathers = [n for n in gathers if n == shard]
+    res = dict(logits=np.stack(logits), fed=np.stack(sent), wall_s=wall,
+               decode_collectives=counts, largest_gather=largest,
+               cache_shard=shard, cache_gathers=cache_gathers,
+               cache_slots=[int(k0.shape[1]), int(local.shape[1])])
+    if cfg.is_moe:
+        if dm is None:
+            res["routes"] = [r.cpu().numpy().astype(np.int16)
+                             for r in routes]
+        else:
+            res["routing"] = tally
     del model, params, cache
     torch.cuda.empty_cache()
-    return dict(logits=np.stack(logits), fed=np.stack(sent), wall_s=wall,
-                decode_collectives=counts, largest_gather=largest,
-                cache_shard=shard, cache_gathers=cache_gathers)
+    return res
 
 
-def mesh_rank(rank, store, tdir):
-    """One of MESH_RANKS gloo ranks on the one card (``phase_mesh_step``,
-    spawned by ``chip_smoke.py --mesh-rank``): every MESH_TRAIN and MESH_GEN
-    run on a 2 x 2 mesh, the launch counters set to 0 just before and read
-    just after; rank 0 writes the results."""
+def _routes_of(ref, key):
+    """The expert choices saved under ``key``_<call> in ``ref``, in call
+    order (None where there are none)."""
+    keys = sorted((k for k in ref if k.startswith(key + "_")),
+                  key=lambda k: int(k.rsplit("_", 1)[1]))
+    return [ref[k] for k in keys] or None
+
+
+def mesh_rank(rank, store, tdir, phase):
+    """One of MESH_RANKS gloo ranks on the one card (``phase_mesh_step``
+    and ``phase_mesh_families``, spawned by ``chip_smoke.py --mesh-rank``):
+    every train and generate run of ``MESH_PHASES[phase]`` on a 2 x 2 mesh,
+    the launch counters set to 0 just before and read just after; rank 0
+    writes the results."""
     from datetime import timedelta
     import torch.distributed as dist
     from repro_torch.launch.mesh import device_mesh, make_test_mesh
     from repro_torch.utils.dist import gloo_collectives
     rank = int(rank)
+    trains, gens = MESH_PHASES[phase]
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", store=dist.FileStore(store, MESH_RANKS),
                             rank=rank, world_size=MESH_RANKS,
@@ -3513,33 +3652,36 @@ def mesh_rank(rank, store, tdir):
     reset_all_counts()
     train, gen = [], []
     with gloo_collectives():
-        for arch, dtype, b in MESH_TRAIN:
-            train.append(mesh_train_run(arch, dtype, b, mesh, dm))
-        for arch, b, prompt, dtypes in MESH_GEN:
-            for dtype in dtypes:
-                key = f"fed_{arch}_{str(dtype)[6:]}"
-                gen.append(mesh_generate_run(arch, b, prompt, dtype,
-                                             ref[key], mesh, dm))
+        for i, (arch, depth, dtype, b) in enumerate(trains):
+            train.append(mesh_train_run(arch, dtype, b, depth, mesh, dm,
+                                        _routes_of(ref, f"routes_train_{i}")))
+        for i, (arch, depth, b, prompt, dtype) in enumerate(_gen_runs(gens)):
+            gen.append(mesh_generate_run(
+                arch, b, prompt, dtype, ref[f"fed_{i}"], depth, mesh, dm,
+                _routes_of(ref, f"routes_gen_{i}")))
     counts = read_counts()
     launches = [None] * MESH_RANKS
+    routing = [None] * MESH_RANKS
     dist.all_gather_object(launches, counts)
+    dist.all_gather_object(routing, [r.get("routing") for r in train + gen])
     if rank == 0:
         np.savez(f"{tdir}/mesh.npz", **{f"logits_{i}": g.pop("logits")
                                         for i, g in enumerate(gen)})
         for g in gen:
             g.pop("fed")
         with open(f"{tdir}/mesh.json", "w") as f:
-            json.dump(dict(train=train, gen=gen, launches=launches), f)
+            json.dump(dict(train=train, gen=gen, launches=launches,
+                           routing=routing), f)
     dist.destroy_process_group()
     return 0
 
 
-def _spawn_mesh_ranks(tdir):
+def _spawn_mesh_ranks(tdir, phase):
     logs = [open(f"{tdir}/log.{r}", "w+") for r in range(MESH_RANKS)]
     procs = [subprocess.Popen(
         [sys.executable, "-X", "faulthandler",
          str(Path(__file__).resolve()), "--mesh-rank", str(r),
-         f"{tdir}/store", tdir],
+         f"{tdir}/store", tdir, phase],
         stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(MESH_RANKS)]
     deadline = time.monotonic() + MESH_TIMEOUT_S
@@ -3563,114 +3705,172 @@ def _spawn_mesh_ranks(tdir):
         raise AssertionError("\n".join(failed))
 
 
-def phase_mesh_step():
-    """The sharded LM step (``launch.specs.build_case``'s ``fn`` on DTensor
-    parameters, optimizer state, batch and cache) on a 2 x 2 mesh of
-    MESH_RANKS gloo ranks sharing the card (spawned ``chip_smoke.py
-    --mesh-rank``): SmolLM-360M at full width, MESH_TRAIN_STEPS AdamW steps
-    in bf16 with f32 masters at B 4 x 512 (batch over ('data', 'model'))
-    and in f32 at B 2 x 512 (over ('data',)); one generate (prefill, then
-    MESH_NEW - 1 decode steps) of SmolLM-360M at B 8, prompt 1024, f32 and
-    bf16, and of granite-3-2b at B 2, prompt 256, bf16 (heads split over
-    'model'), the decode steps fed the one-device run's tokens.  Each run
-    is held against the same run on one device of the card, made first
-    and freed before the spawn: ce and grad_norm within MESH_TRAIN_RTOL,
-    logits within LOGIT_TOL of max(1, max |logit|), f32 greedy tokens
-    equal.  No decode step all-gathers a rank's shard of a layer's k or v
-    cache.  Prints walls, DTensor's collectives (``CommDebugMode``)
-    a step and the launches of every rank."""
+def _flips(routing, i):
+    """Run ``i``'s routing flips by rank, as "flips/tokens" (None where the
+    run has no experts)."""
+    by_rank = [r[i] for r in routing]
+    if by_rank[0] is None:
+        return None
+    return [f"{t['flips']}/{t['tokens']}" for t in by_rank]
+
+
+def _mesh_phase(phase, label):
+    """The runs of ``MESH_PHASES[phase]``: each on one device of the card
+    first (inside the same ``activation_sharding`` context, no device
+    mesh), then on MESH_RANKS gloo ranks sharing the card, spawned, and
+    held: ce and grad_norm within MESH_TRAIN_RTOL, logits within LOGIT_TOL
+    of max(1, max |logit|), f32 greedy tokens equal, no decode step
+    all-gathering a rank's shard of a layer's k or v cache, flash and
+    decode launched on the ranks.  Prints walls, DTensor's collectives a
+    step, MoE's routing flips by rank, and the launches of every rank."""
     import tempfile
+    trains, gens = MESH_PHASES[phase]
+    runs = _gen_runs(gens)
     t0 = time.perf_counter()
-    ref_train, ref_gen, fed = [], [], {}
-    for arch, dtype, b in MESH_TRAIN:
-        ref_train.append(mesh_train_run(arch, dtype, b))
-    for arch, b, prompt, dtypes in MESH_GEN:
-        for dtype in dtypes:
-            run = mesh_generate_run(arch, b, prompt, dtype)
-            fed[f"fed_{arch}_{str(dtype)[6:]}"] = run["fed"]
-            ref_gen.append(run)
+    ref_train, ref_gen, saved = [], [], {}
+    for i, (arch, depth, dtype, b) in enumerate(trains):
+        one = mesh_train_run(arch, dtype, b, depth)
+        for j, r in enumerate(one.pop("routes", [])):
+            saved[f"routes_train_{i}_{j}"] = r
+        ref_train.append(one)
+    for i, (arch, depth, b, prompt, dtype) in enumerate(runs):
+        one = mesh_generate_run(arch, b, prompt, dtype, depth=depth)
+        saved[f"fed_{i}"] = one["fed"]
+        for j, r in enumerate(one.pop("routes", [])):
+            saved[f"routes_gen_{i}_{j}"] = r
+        ref_gen.append(one)
     torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tdir:
-        np.savez(f"{tdir}/ref.npz", **fed)
+        np.savez(f"{tdir}/ref.npz", **saved)
         t1 = time.perf_counter()
-        _spawn_mesh_ranks(tdir)
+        _spawn_mesh_ranks(tdir, phase)
         spawn_s = time.perf_counter() - t1
         with open(f"{tdir}/mesh.json") as f:
             got = json.load(f)
         logits = dict(np.load(f"{tdir}/mesh.npz"))
     report = dict(ranks=MESH_RANKS, mesh="2x2 (data, model)",
                   one_device_s=ref_s, ranks_s=spawn_s, train=[], generate=[])
-    for (arch, dtype, b), one, mesh in zip(MESH_TRAIN, ref_train,
-                                           got["train"]):
+    for i, ((arch, depth, dtype, b), one, mesh) in enumerate(
+            zip(trains, ref_train, got["train"])):
         errs = {k: max(abs(m - o) / abs(o) for m, o in zip(mesh[k], one[k]))
                 for k in ("ce", "grad_norm")}
         name = str(dtype)[6:]
+        flips = _flips(got["routing"], i)
         ok = errs["ce"] <= MESH_TRAIN_RTOL[dtype] and (
             dtype != torch.float32
             or errs["grad_norm"] <= MESH_TRAIN_RTOL[dtype])
-        row = dict(arch=arch, dtype=name, batch=b, seq=MESH_SEQ,
-                   batch_axes=mesh["batch_axes"], ce=mesh["ce"],
-                   ce_one_device=one["ce"], rel_err=errs,
+        row = dict(arch=arch, layers=depth, dtype=name, batch=b,
+                   seq=MESH_SEQ, batch_axes=mesh["batch_axes"],
+                   ce=mesh["ce"], ce_one_device=one["ce"], rel_err=errs,
                    wall_s=mesh["wall_s"], wall_s_one_device=one["wall_s"],
-                   collectives=mesh["collectives"])
+                   collectives=mesh["collectives"], routing_flips=flips)
         report["train"].append(row)
-        print(f"mesh train {arch} {name} B{b}x{MESH_SEQ} over "
+        print(f"{label} train {arch} {name} B{b}x{MESH_SEQ} over "
               f"{mesh['batch_axes']}: ce {mesh['ce']} (one device "
               f"{one['ce']}), rel err ce {errs['ce']:.2e} grad_norm "
               f"{errs['grad_norm']:.2e}, wall/step {mesh['wall_s']} s "
               f"(one device {one['wall_s']}), collectives/step "
-              f"{mesh['collectives']} {'ok' if ok else 'FAIL'}", flush=True)
+              f"{mesh['collectives']}"
+              + (f", routing flips by rank {flips}"
+                 + (" (replayed)" if dtype == torch.bfloat16 else "")
+                 if flips else "") + f" {'ok' if ok else 'FAIL'}",
+              flush=True)
         if not ok:
-            raise AssertionError(f"mesh train {arch} {name}: {errs}")
-    i = 0
-    for arch, b, prompt, dtypes in MESH_GEN:
-        for dtype in dtypes:
-            one, mesh = ref_gen[i], got["gen"][i]
-            got_l, want = logits[f"logits_{i}"], one["logits"]
-            scale = max(1.0, float(np.abs(want).max()))
-            steps = [float(np.abs(g - w).max()) / scale
-                     for g, w in zip(got_l, want)]
-            err = max(steps)
-            same = bool((got_l.argmax(-1) == want.argmax(-1)).all())
-            name = str(dtype)[6:]
-            ok = (err <= LOGIT_TOL[dtype] and np.isfinite(got_l).all()
-                  and (same or dtype != torch.float32)
-                  and not mesh["cache_gathers"])
-            row = dict(arch=arch, dtype=name, batch=b, prompt=prompt,
-                       new=MESH_NEW, logit_err=err, logit_err_steps=steps,
-                       tokens_equal=same,
-                       wall_s=mesh["wall_s"], wall_s_one_device=one["wall_s"],
-                       decode_collectives=mesh["decode_collectives"],
-                       largest_gather=mesh["largest_gather"],
-                       cache_shard=mesh["cache_shard"],
-                       cache_gathers=mesh["cache_gathers"])
-            report["generate"].append(row)
-            print(f"mesh generate {arch} {name} B{b} prompt {prompt} + "
-                  f"{MESH_NEW}: logits err {err:.3e} of max(1, |logit|) "
-                  f"(limit {LOGIT_TOL[dtype]}; prefill {steps[0]:.3e}, "
-                  f"decode steps up to {max(steps[1:]):.3e}), tokens equal "
-                  f"{same}, wall "
-                  f"{mesh['wall_s']:.2f} s (one device {one['wall_s']:.2f}),"
-                  f" collectives/decode step {mesh['decode_collectives']}, "
-                  f"largest all-gather {mesh['largest_gather']} elements, "
-                  f"of a layer's k or v cache shard "
-                  f"({mesh['cache_shard']}): {len(mesh['cache_gathers'])} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                raise AssertionError(f"mesh generate {arch} {name}")
-            i += 1
+            raise AssertionError(f"{label} train {arch} {name}: {errs}")
+    for i, (arch, depth, b, prompt, dtype) in enumerate(runs):
+        one, mesh = ref_gen[i], got["gen"][i]
+        got_l, want = logits[f"logits_{i}"], one["logits"]
+        scale = max(1.0, float(np.abs(want).max()))
+        steps = [float(np.abs(g - w).max()) / scale
+                 for g, w in zip(got_l, want)]
+        err = max(steps)
+        same = bool((got_l.argmax(-1) == want.argmax(-1)).all())
+        name = str(dtype)[6:]
+        flips = _flips(got["routing"], len(trains) + i)
+        ok = (err <= LOGIT_TOL[dtype] and np.isfinite(got_l).all()
+              and got_l.shape == want.shape
+              and (same or dtype != torch.float32)
+              and not mesh["cache_gathers"])
+        row = dict(arch=arch, layers=depth, dtype=name, batch=b,
+                   prompt=prompt, new=MESH_NEW, logit_err=err,
+                   logit_err_steps=steps, tokens_equal=same,
+                   wall_s=mesh["wall_s"], wall_s_one_device=one["wall_s"],
+                   decode_collectives=mesh["decode_collectives"],
+                   largest_gather=mesh["largest_gather"],
+                   cache_shard=mesh["cache_shard"],
+                   cache_gathers=mesh["cache_gathers"],
+                   cache_slots=mesh["cache_slots"], routing_flips=flips)
+        report["generate"].append(row)
+        cut = "" if depth is None else f" ({depth} layers)"
+        print(f"{label} generate {arch}{cut} {name} B{b} prompt {prompt} + "
+              f"{MESH_NEW}: logits err {err:.3e} of max(1, |logit|) "
+              f"(limit {LOGIT_TOL[dtype]}; prefill {steps[0]:.3e}, "
+              f"decode steps up to {max(steps[1:]):.3e}), tokens equal "
+              f"{same}, wall "
+              f"{mesh['wall_s']:.2f} s (one device {one['wall_s']:.2f}),"
+              f" collectives/decode step {mesh['decode_collectives']}, "
+              f"largest all-gather {mesh['largest_gather']} elements, "
+              f"of a layer's k or v cache shard "
+              f"({mesh['cache_shard']}): {len(mesh['cache_gathers'])}, "
+              f"cache slots / a rank {mesh['cache_slots']}"
+              + (f", routing flips by rank {flips}"
+                 + (" (replayed)" if dtype == torch.bfloat16 else "")
+                 if flips else "") + f" {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{label} generate {arch} {name}")
     report["launches"] = {k: sum(c[k] for c in got["launches"])
                           for k in ("flash_attention", "decode_attention")}
     report["launches_by_rank"] = got["launches"]
     report["wall_s"] = time.perf_counter() - t0
     if min(report["launches"].values()) == 0:
-        raise AssertionError(f"mesh step: a kernel was not launched: "
+        raise AssertionError(f"{label}: a kernel was not launched: "
                              f"{report['launches']}")
-    print(f"mesh step: launches over {MESH_RANKS} ranks "
+    print(f"{label}: launches over {MESH_RANKS} ranks "
           f"{report['launches']}, phase {report['wall_s']:.1f} s "
           f"(one device {ref_s:.1f}, ranks {spawn_s:.1f}) [{card_line()}]",
           flush=True)
+    return report
+
+
+def phase_mesh_step():
+    """The sharded LM step (``launch.specs.build_case``'s ``fn`` on DTensor
+    parameters, optimizer state, batch and cache) on a 2 x 2 mesh of
+    MESH_RANKS gloo ranks sharing the card (spawned ``chip_smoke.py
+    --mesh-rank``), the dense family: SmolLM-360M at full width (16 of
+    32 layers), MESH_TRAIN_STEPS AdamW steps in bf16 with f32 masters at
+    B 4 x 512 (batch over ('data', 'model')) and in f32 at B 2 x 512
+    (over ('data',)); one generate (prefill, then MESH_NEW - 1 decode
+    steps) of SmolLM-360M at B 8, prompt 1024, f32 and bf16, and of
+    granite-3-2b (all 40 layers) at B 2, prompt 256, bf16 (heads split
+    over 'model'), the decode steps fed the one-device run's tokens; held
+    as ``_mesh_phase`` holds them."""
+    return _mesh_phase("step", "mesh step")
+
+
+def phase_mesh_families():
+    """``phase_mesh_step`` for the attention-block families past the dense
+    one and the window's ring (MESH_FAMILY_TRAIN, MESH_FAMILY_GEN), at full
+    width, random weights from seed 0: granite-moe-1b-a400m (32 experts,
+    top-8) two bf16 AdamW steps with f32 masters at B 4 x 512 (batch over
+    ('data', 'model'): 4 routing groups) and a generate of B 2 x 256 + 8
+    in f32 and bf16; mixtral-8x7b (1 of 32 layers) B 1 x 4096 + 8, f32 and
+    bf16, the prompt filling the 4096-slot ring (2,048 a rank) and each
+    decode step overwriting its oldest slot; musicgen-medium B 2 x 256
+    frames + 8, bf16; llava-next-mistral-7b (2 of 32 layers) B 1 x (1,152
+    image embeds + 128 text) + 8, bf16.  Each run is held against the
+    same run on one device under the same ``activation_sharding`` context
+    (MoE in as many groups); in bf16 MoE on the one-device run's expert
+    choices, replayed on each rank's groups (``rank_routing``), its own
+    flips counted in both dtypes."""
+    report = _mesh_phase("families", "mesh families")
+    for r in report["generate"]:
+        window = _mesh_cfg(r["arch"], r["layers"]).sliding_window
+        if window is not None and (r["prompt"] != window or r[
+                "cache_slots"] != [window, window // 2]):
+            raise AssertionError(f"{r['arch']}: the prompt does not fill "
+                                 f"the ring: {r}")
     return report
 
 
@@ -3707,8 +3907,9 @@ def main() -> int:
     phase_lm_profile(lm)
     cohort["profile"] = phase_cohort_profile()
     eval_path["replay_profile"] = phase_eval_profile(eval_path["drivers"])
-    # last: its four extra processes on the card perturb no timing
+    # last: their four extra processes on the card perturb no timing
     mesh_step = phase_mesh_step()
+    mesh_families = phase_mesh_families()
     head = shapes["vehicle_sensor"]
     shapes["cohort_k256"] = dict(cohort["kernel"],
                                  max_abs_err=errs["cohort"])
@@ -3722,11 +3923,15 @@ def main() -> int:
                    "personalize": pers["counts"]["flash_attention"],
                    "train": train["launches"],
                    "families": families["flash_attention"],
-                   "mesh_step": mesh_step["launches"]["flash_attention"]}
+                   "mesh_step": mesh_step["launches"]["flash_attention"],
+                   "mesh_families":
+                       mesh_families["launches"]["flash_attention"]}
     decode_paths = {"lm_generate": sum(lm[dt]["counts"]["decode_attention"]
                                        for dt in ("float32", "bfloat16")),
                     "families": families["decode_attention"],
-                    "mesh_step": mesh_step["launches"]["decode_attention"]}
+                    "mesh_step": mesh_step["launches"]["decode_attention"],
+                    "mesh_families":
+                        mesh_families["launches"]["decode_attention"]}
     kernels = [dict(
         name="sdca_local_solve", route="cuda",
         source="src/repro_torch/kernels/sdca/csrc/sdca.cu",
@@ -3770,6 +3975,7 @@ def main() -> int:
     print(json.dumps({"families": families["runs"]}))
     print(json.dumps({"dryrun": dry}))
     print(json.dumps({"mesh_step": mesh_step}))
+    print(json.dumps({"mesh_families": mesh_families}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3782,5 +3988,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:
         sys.exit(sharded_rank(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--mesh-rank"]:
-        sys.exit(mesh_rank(*sys.argv[2:5]))
+        sys.exit(mesh_rank(*sys.argv[2:6]))
     sys.exit(main())

@@ -9,9 +9,10 @@ JAX package's does, the step itself, ``fn``: ``make_train_step(
 param_specs=)`` for training, ``Model.prefill`` and ``Model.decode_step``
 over a params argument for serving.  ``fn`` runs on the same trees placed
 on a mesh (``sharding.distribute``) inside ``utils.pjit_utils.
-activation_sharding(mesh, batch_axes, device_mesh)``, for the dense
-family; for the other families (and the window variant) it raises,
-naming ROADMAP.md item 24.  Nothing is compiled.
+activation_sharding(mesh, batch_axes, device_mesh)``, for the
+attention-block families (dense, MoE, vlm, audio) and the window variant;
+for rwkv6 and the hybrid it raises, naming ROADMAP.md item 25.  Nothing is
+compiled.
 
 Every leaf has the JAX package's dtype: int32 tokens, bf16 image
 embeddings, bf16 weights where JAX casts them (every float32 leaf of rank
@@ -121,10 +122,10 @@ def serve_param_specs(model: Model, dtype: torch.dtype = torch.bfloat16):
 
 
 def _not_on_mesh(cfg: ArchConfig):
-    def fn(*args):
+    def refuse(*args):
         raise NotImplementedError(f"{cfg.name} (window {cfg.sliding_window})"
                                   f" on a mesh: {MESH_LATER}")
-    return fn
+    return refuse
 
 
 def _step_fn(model: Model, kind: str, dtype: torch.dtype, tc=None,

@@ -15,8 +15,8 @@ saves the trained parameters through ``train.checkpoint``.
 ``--dry-run`` writes the plan of ``--shape`` on the production mesh
 (``--multi-pod``: two pods) through ``launch.dryrun.run_case``, held
 against the card's memory unless ``--device cpu``.  The step on a mesh
-is ``launch.specs.build_case``'s ``fn`` (the dense family), which this
-launcher does not run: it trains on one device.
+is ``launch.specs.build_case``'s ``fn`` (the attention-block families),
+which this launcher does not run: it trains on one device.
 """
 import argparse
 

@@ -16,11 +16,13 @@ over the cache through ``decode_mha`` (also over a sliding window's ring
 buffer).  Caches are updated in place.
 
 On a mesh (the parameters and the batch are DTensors, inside
-``utils.pjit_utils.activation_sharding``) the attention of the dense
-family pins its activations where the JAX package does and runs on each
-rank's local shards (``_mesh_attention``): flash over the rank's heads in
-training and prefill, each rank's slice of a sequence-sharded cache in
-decode, merged by the slices' log-sum-exps; the cache is never gathered.
+``utils.pjit_utils.activation_sharding``) the attention of every
+attention-block family (dense, MoE, vlm, audio) pins its activations where
+the JAX package does and runs on each rank's local shards
+(``_mesh_attention``): flash over the rank's heads in training and
+prefill, each rank's slice of a sequence-sharded cache in decode (a
+window's ring too), merged by the slices' log-sum-exps; the cache is never
+gathered.
 """
 from __future__ import annotations
 
@@ -41,8 +43,8 @@ Params = Mapping[str, torch.Tensor]
 _CACHED_LATER = ("ROADMAP.md Queue 1 item 14e (a segment into a non-empty "
                  "cache, a prompt longer than the window's ring)")
 #: what the port does not run on a mesh yet
-MESH_LATER = ("ROADMAP.md Queue 1 item 24 (MoE, rwkv6, the hybrid, audio, "
-              "vlm and the window's ring on a mesh)")
+MESH_LATER = ("ROADMAP.md Queue 1 item 25 (rwkv6 and the mamba2/zamba2 "
+              "hybrid on a mesh)")
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +82,8 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int,
 # ---------------------------------------------------------------------------
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w``.  On a mesh in bf16 with ``w``'s input dim split over a
+    """``x @ w`` (``w`` a matrix, or a stack of them: the experts').  On a
+    mesh in bf16 with ``w``'s input dim (its next-to-last) split over a
     mesh dim that does not split ``x``'s rows (tensor parallelism: each
     rank's product a part of the sum; where the rows are split there too,
     FSDP gathers ``w`` instead), the parts are formed and added in f32 and
@@ -89,7 +92,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     sum would each add a rounding, which granite-3-2b's 40 layers carry
     past the serving contract's bf16 limit (PERF.md, PR 23)."""
     if not (pj.on_mesh(w) and x.dtype == torch.bfloat16
-            and any(p.is_shard(0) and not q.is_shard(0)
+            and any(p.is_shard(w.dim() - 2) and not q.is_shard(0)
                     for p, q in zip(w.placements, x.placements))):
         return x @ w
     from torch.distributed.tensor import Replicate
@@ -390,11 +393,12 @@ def _decode_sharded(q, k_c, v_c, lengths):
 
 def _mesh_attention(q, k, v, positions, cfg: ArchConfig,
                     window: Optional[int], cache, cache_pos):
-    """``attention_apply``'s core on a mesh, for the dense family: q, k, v
-    (B, S, H|Hkv, D) and positions (B, S) are DTensors; returns the
-    attention output (B, S, H, D) before the output projection."""
-    if window is not None:
-        raise NotImplementedError(f"a window on a mesh ({MESH_LATER})")
+    """``attention_apply``'s core on a mesh: q, k, v (B, S, H|Hkv, D) and
+    positions (B, S) are DTensors; returns the attention output (B, S, H,
+    D) before the output projection.  The cached cases are the one-device
+    path's: with a window a decode step writes slot cache_pos % T of the
+    ring and reads its min(cache_pos + 1, T) written slots, each rank its
+    own T-slice of them."""
     theta = cfg.rope_theta
     s = q.shape[1]
     if cache is not None and s == 1:
@@ -405,10 +409,14 @@ def _mesh_attention(q, k, v, positions, cfg: ArchConfig,
         v = constrain(v, BATCH, None, None, None)
         positions = constrain(positions, BATCH, None)
         q, k = _rope_local(q, k, positions, theta)
-        _write_decode(cache, k, v, positions, cache_pos)
+        t = cache["k"].shape[1]
+        slot, lengths = cache_pos, cache_pos + 1
+        if window is not None:
+            slot, lengths = cache_pos % t, torch.clamp(lengths, max=t)
+        _write_decode(cache, k, v, positions, slot)
         k_c = constrain(cache["k"].to(q.dtype), BATCH, "model", None, None)
         v_c = constrain(cache["v"].to(q.dtype), BATCH, "model", None, None)
-        out = _decode_sharded(q, k_c, v_c, cache_pos + 1)
+        out = _decode_sharded(q, k_c, v_c, lengths)
         return constrain(out, BATCH, None, None, None).to(q.dtype)
     if cache is not None:
         t = cache["k"].shape[1]
@@ -416,7 +424,8 @@ def _mesh_attention(q, k, v, positions, cfg: ArchConfig,
                 (cache_pos.full_tensor() == 0).all()))):
             raise NotImplementedError(
                 f"attention over a cache of {t} slots with {s} new tokens "
-                f"is not in the port yet ({_CACHED_LATER})")
+                f"and window {window} is not in the port yet "
+                f"({_CACHED_LATER})")
     q = constrain(q, BATCH, None, "model", None)
     k = constrain(k, BATCH, None, "model", None)
     v = constrain(v, BATCH, None, "model", None)

@@ -1,14 +1,17 @@
 """Mixture-of-Experts block of the port: the JAX package's ``models/moe.py``.
 
-Top-k routing with capacity-bounded, sort-based dispatch, in one group (the
-JAX package splits the tokens into as many groups as the mesh has batch
-shards; outside a mesh that is one).  The dispatch keeps the JAX package's
-rules, so the same tokens are dropped: the (token, k) assignments are
-stably sorted by expert, an assignment's rank is its place among its
-expert's (``searchsorted``), ranks at or past the capacity go to an
-overflow bucket that is thrown away, and a dropped assignment adds nothing
-(the token keeps its residual).  The expert FFNs are batched matmuls, as
-the JAX package's einsums.
+Top-k routing with GShard-style *grouped*, capacity-bounded, sort-based
+dispatch.  The tokens are split into G groups, as many as the mesh has
+batch shards (``pjit_utils.batch_shard_count``; one outside a mesh, and
+one where G does not divide the tokens or a group would hold fewer tokens
+than there are experts), and each group routes its own tokens into its own
+capacity buffer.  The dispatch keeps the JAX package's rules, so the same
+tokens are dropped: a group's (token, k) assignments are stably sorted by
+expert, an assignment's rank is its place among its expert's
+(``searchsorted``), ranks at or past the capacity go to an overflow bucket
+that is thrown away, and a dropped assignment adds nothing (the token
+keeps its residual).  The expert FFNs are batched matmuls, as the JAX
+package's einsums.
 
 The combine has no atomics: each token has exactly ``top_k`` assignments,
 which are put back in token order and summed over k one after another, so
@@ -16,8 +19,15 @@ reruns on the card are equal bit for bit (a scatter-add, as the JAX package
 writes it, would add through atomics there, in an order that changes from
 run to run).
 
-Auxiliary losses: Switch-style load balance and router z-loss, and the
-share of assignments dropped.
+On a mesh (DTensors inside ``activation_sharding``) the activations are
+pinned where the JAX package pins them; the router, the sort, the rank and
+the scatter, and the combine, run on each rank's own groups
+(``pjit_utils.local``: DTensor has no rule for them, and the groups are the
+batch dim that BATCH splits), and the expert products on DTensors with the
+plan's weight placements (``layers.matmul``).
+
+Auxiliary losses: Switch-style load balance and router z-loss, means over
+(groups, tokens), and the share of assignments dropped.
 """
 from __future__ import annotations
 
@@ -28,7 +38,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import normal_init
+from repro_torch.models.layers import matmul, normal_init
+from repro_torch.utils import pjit_utils as pj
+from repro_torch.utils.pjit_utils import BATCH, constrain
 
 Params = Mapping[str, torch.Tensor]
 
@@ -45,6 +57,16 @@ def moe_init(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
 def capacity(tokens_per_group: int, cfg: ArchConfig) -> int:
     per_expert = tokens_per_group * cfg.top_k / cfg.n_experts
     return max(cfg.top_k, int(math.ceil(per_expert * cfg.capacity_factor)))
+
+
+def groups_for(tokens: int, n_experts: int) -> int:
+    """The routing groups of ``tokens`` tokens: the batch shards, or one
+    where they do not divide the tokens or leave a group fewer tokens than
+    experts (the JAX package's rule)."""
+    groups = pj.batch_shard_count()
+    if tokens % groups != 0 or tokens // groups < n_experts:
+        return 1
+    return groups
 
 
 def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -76,58 +98,118 @@ def _dispatch_one_group(xt: torch.Tensor, top_e: torch.Tensor,
     return buf, dest_e, dest_c, order, sw, keep
 
 
+def _route(xt: torch.Tensor, router: torch.Tensor, e: int, k: int, c: int):
+    """Router, top-k and dispatch of each group of ``xt`` (G, Tg, D).
+    Returns the tensors the experts, the combine and the aux losses read,
+    each with G leading: expert_in (G, E, C, D), the assignments' slots
+    (dest_e, dest_c), ``inv`` (expert order -> flat (token, k) order), their
+    weights (0 where dropped), keep, the router's probabilities, its
+    log-sum-exps and the one-hot of the choices (G, Tg k, E)."""
+    logits = (xt @ router).float()
+    probs = torch.softmax(logits, dim=-1)                  # (G, Tg, E)
+    top_w, top_e = top_k(probs, k)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    outs = []
+    for g in range(xt.shape[0]):
+        buf, dest_e, dest_c, order, sw, keep = _dispatch_one_group(
+            xt[g], top_e[g], top_w[g], e, c)
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.numel(), device=order.device)
+        outs.append((buf[:-1], dest_e, dest_c, inv, sw * keep, keep))
+    expert_in, dest_e, dest_c, inv, weights, keep = (
+        torch.stack(z) for z in zip(*outs))
+    assign = F.one_hot(top_e.reshape(top_e.shape[0], -1), e).float()
+    return (expert_in, dest_e, dest_c, inv, weights, keep, probs,
+            torch.logsumexp(logits, dim=-1), assign)
+
+
+def _combine(expert_out: torch.Tensor, dest_e, dest_c, inv, weights, k: int
+             ) -> torch.Tensor:
+    """Each group's assignments' weighted outputs, back in (token, k)
+    order, summed over k in a fixed order: (G, Tg, D)."""
+    g, _, c, d = expert_out.shape
+    pad = expert_out.new_zeros((g, 1, c, d))
+    padded = torch.cat([expert_out, pad], dim=1)
+    ys = []
+    for i in range(g):
+        vals = padded[i][dest_e[i], dest_c[i]] \
+            * weights[i].to(expert_out.dtype)[:, None]
+        vals = vals[inv[i]].view(-1, k, d)
+        y = vals[:, 0]
+        for j in range(1, k):
+            y = y + vals[:, j]
+        ys.append(y)
+    return torch.stack(ys)
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor replicated on every mesh dim (partial sums reduced); a
+    plain tensor as it is."""
+    if not pj.on_mesh(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
 def moe_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
               capacity_override: Optional[int] = None,
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) -> (y, aux losses).  Dropped-token policy: residual
     only.  capacity_override: serving decode passes the token count
-    (dropless); training and prefill keep capacity-bounded routing."""
+    (dropless); training and prefill keep capacity-bounded routing.  The
+    capacity is per group (of T / G tokens)."""
     b, s, d = x.shape
     dt = x.dtype
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
+    groups = groups_for(t, e)
+    tg = t // groups
     c = capacity_override if capacity_override is not None else capacity(
-        t, cfg)
-    c = min(c, t * k)
-    xt = x.reshape(t, d)
+        tg, cfg)
+    c = min(c, tg * k)
+    xt = constrain(x.reshape(groups, tg, d), BATCH, None, None)
+    router = params["router"].to(dt)
 
-    logits = (xt @ params["router"].to(dt)).float()
-    probs = torch.softmax(logits, dim=-1)                  # (T, E)
-    top_w, top_e = top_k(probs, k)
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    def route(xl, rl):
+        return _route(xl, rl, e, k, c)
 
-    buf, dest_e, dest_c, order, sw, keep = _dispatch_one_group(
-        xt, top_e, top_w, e, c)
-    expert_in = buf[:-1]                                   # (E, C, D)
+    if pj.on_mesh(xt):
+        rows = tuple(xt.placements)
+        (expert_in, dest_e, dest_c, inv, weights, keep, probs, lse,
+         assign) = pj.local(route, (rows,) * 9, xt, _whole(router))
+    else:
+        (expert_in, dest_e, dest_c, inv, weights, keep, probs, lse,
+         assign) = route(xt, router)
+    expert_in = constrain(expert_in, BATCH, None, None, None)  # (G,E,C,D)
 
     if cfg.mlp in ("swiglu", "geglu"):
-        gate = torch.matmul(expert_in, params["w_gate"].to(dt))
+        gate = matmul(expert_in, params["w_gate"].to(dt))
         gate = (F.silu(gate) if cfg.mlp == "swiglu"
                 else F.gelu(gate, approximate="tanh"))
-        hidden = gate * torch.matmul(expert_in, params["w_up"].to(dt))
+        hidden = gate * matmul(expert_in, params["w_up"].to(dt))
     else:
-        hidden = F.gelu(torch.matmul(expert_in, params["w_gate"].to(dt)),
+        hidden = F.gelu(matmul(expert_in, params["w_gate"].to(dt)),
                         approximate="tanh")
-    expert_out = torch.matmul(hidden, params["w_down"].to(dt))  # (E, C, D)
+    hidden = constrain(hidden, BATCH, None, None, "model")
+    expert_out = matmul(hidden, params["w_down"].to(dt))     # (G,E,C,D)
+    expert_out = constrain(expert_out, BATCH, None, None, None)
 
-    # combine: each assignment's weighted output, back in (token, k) order,
-    # summed over k in a fixed order
-    pad = expert_out.new_zeros((1, c, d))
-    vals = torch.cat([expert_out, pad])[dest_e, dest_c] \
-        * (sw * keep).to(dt)[:, None]
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.numel(), device=order.device)
-    vals = vals[inv].view(t, k, d)
-    y = vals[:, 0]
-    for j in range(1, k):
-        y = y + vals[:, j]
+    def combine(eo, de, dc, iv, w):
+        return _combine(eo, de, dc, iv, w, k)
 
-    assign = F.one_hot(top_e.reshape(-1), e).float()
-    frac_assigned = assign.mean(0) * e
-    mean_prob = probs.mean(0) * e
+    if pj.on_mesh(expert_out):
+        y = pj.local(combine, tuple(expert_out.placements), expert_out,
+                     dest_e, dest_c, inv, weights)
+    else:
+        y = combine(expert_out, dest_e, dest_c, inv, weights)
+    y = constrain(y, BATCH, None, None)
+
+    # means over (groups, tokens): each group holds as many tokens
+    frac_assigned = _whole(assign.reshape(-1, e).mean(0)) * e
+    mean_prob = _whole(probs.reshape(-1, e).mean(0)) * e
     lb_loss = torch.mean(frac_assigned * mean_prob)
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1).square())
+    z_loss = _whole(lse.square().mean())
     aux = {"moe_lb": cfg.router_aux_weight * lb_loss,
            "moe_z": cfg.router_z_weight * z_loss,
-           "moe_drop_frac": 1.0 - keep.float().mean()}
-    return y.view(b, s, d), aux
+           "moe_drop_frac": 1.0 - _whole(keep.float().mean())}
+    return y.reshape(b, s, d), aux

@@ -34,12 +34,14 @@ kernels (their plain versions on CPU tensors); the MoE dispatch, the wkv
 and SSD scans are plain torch, as they are plain jnp there.
 
 On a mesh (``load_tree`` of DTensor leaves placed by ``launch.sharding``,
-a DTensor batch, inside ``utils.pjit_utils.activation_sharding``) the dense
-family runs the same methods: the activations pinned where the JAX package
+a DTensor batch, inside ``utils.pjit_utils.activation_sharding``) the
+attention-block families (dense, MoE, vlm, audio; with or without a
+window) run the same methods: the activations pinned where the JAX package
 pins them (``constrain``), the embedding a masked lookup of each rank's
-slice of the vocabulary, the attention on each rank's shards
-(``layers._mesh_attention``).  The other families raise there (ROADMAP.md
-item 24).
+slice of the vocabulary (summed over audio's codebooks, vlm's image prefix
+joined to it), the attention on each rank's shards
+(``layers._mesh_attention``), MoE's routing on each rank's groups
+(``models.moe``).  rwkv6 and the hybrid raise there (ROADMAP.md item 25).
 """
 from __future__ import annotations
 
@@ -195,10 +197,10 @@ def _cast(tree, dt: torch.dtype, name: str = ""):
 
 
 def mesh_ready(cfg: ArchConfig) -> bool:
-    """Whether the port runs ``cfg`` on a mesh: the dense attention family
-    without a window (the rest is ROADMAP.md item 24)."""
-    return (cfg.family == "dense" and cfg.block_type == "attention"
-            and not cfg.is_moe and cfg.sliding_window is None)
+    """Whether the port runs ``cfg`` on a mesh: the attention-block
+    families (dense, MoE, vlm, audio), with or without a window (rwkv6 and
+    the hybrid are ROADMAP.md item 25)."""
+    return cfg.block_type == "attention"
 
 
 def _embed_on_mesh(table, tok, dtype: torch.dtype):
@@ -335,17 +337,30 @@ class Model(nn.Module):
         """Returns (hidden (B,S,D), positions (B,S))."""
         cfg = self.cfg
         tok = batch["tokens"]
+        mesh = pj.on_mesh(W["embed"])
+
+        def look(table, t):
+            if mesh:
+                return _embed_on_mesh(table, t, dtype)
+            return F.embedding(t.long(), table).to(dtype)
+
         if cfg.family == "audio":                 # tokens (B, S, C)
-            h = sum(F.embedding(tok[..., i].long(), W["embed"][i]).to(dtype)
+            h = sum(look(W["embed"][i], tok[..., i])
                     for i in range(cfg.n_codebooks))
         elif cfg.family == "vlm":                 # image prefix + text
-            img = batch["image_embeds"].to(device=tok.device, dtype=dtype)
-            h = torch.cat([img, F.embedding(tok.long(), W["embed"]).to(dtype)],
-                          dim=1)
-        elif pj.on_mesh(W["embed"]):
-            h = _embed_on_mesh(W["embed"], tok, dtype)
+            h = look(W["embed"], tok)
+            img = batch["image_embeds"]
+            if mesh and img.shape[1]:
+                if not pj.on_mesh(img):
+                    img = pj.replicate(img.to(tok.device), h.device_mesh)
+                # both parts whole on each rank's rows before the join
+                img = constrain(img.to(dtype), BATCH, None, None)
+                h = torch.cat([img, constrain(h, BATCH, None, None)], dim=1)
+            elif not mesh:
+                img = img.to(device=tok.device, dtype=dtype)
+                h = torch.cat([img, h], dim=1)
         else:
-            h = F.embedding(tok.long(), W["embed"]).to(dtype)
+            h = look(W["embed"], tok)
         b, s = h.shape[:2]
         start = batch.get("start_pos")
         if start is None:
@@ -436,7 +451,7 @@ class Model(nn.Module):
         cfg = self.cfg
         dt = h.dtype
         if cfg.family == "audio":
-            out = h @ W["lm_head"].to(dt)
+            out = L.matmul(h, W["lm_head"].to(dt))
             out = out.reshape(*h.shape[:-1], cfg.n_codebooks,
                               cfg.vocab_size)
         elif cfg.tie_embeddings:

@@ -10,7 +10,7 @@ pass recomputes the plain attention (``kernels.flash_attention.ops``), as
 the JAX package trains through plain attention under ``jax.checkpoint``.
 
 On a mesh the same step runs on DTensor parameters, optimizer state and
-batch (placed by ``launch.sharding``; the dense family, inside
+batch (placed by ``launch.sharding``; the attention-block families, inside
 ``utils.pjit_utils.activation_sharding``): ``param_specs``, the JAX
 package's pin of the bf16 weights to their masters' sharding, redistributes
 each cast to its master's placements; the gradients come back in their

@@ -442,6 +442,57 @@ def test_decode_kernel_merges_over_two_halves_of_a_cache():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_decode_kernel_merges_over_two_halves_of_a_wrapped_ring(d, dtype):
+    """A window's ring of 1024 slots, each row written position by position
+    at slot pos % 1024 (rows of 5, 700, 1024 and 2600 positions: not
+    full, full, wrapped twice), read over min(pos, 1024) slots: two calls
+    over its two T-halves merged by their log-sum-exps equal one call over
+    the whole ring (the mesh's sequence-sharded ring, on one card), and
+    the plain version, within ``attention_tolerance`` plus the rounding of
+    each half's output to the dtype before the merge (eps / 2 of the
+    weighted halves' magnitudes: 2^-8 in bf16)."""
+    dev = _card()
+    b, t, h, hkv = 4, 1024, 8, 2
+    written = [5, 700, 1024, 2600]
+    q = _normal((b, 1, h, d), dev, dtype, 0)
+    k = torch.zeros((b, t, hkv, d), device=dev, dtype=dtype)
+    v = torch.zeros_like(k)
+    for row, n in enumerate(written):
+        kn = _normal((n, hkv, d), dev, dtype, 10 + row)
+        vn = _normal((n, hkv, d), dev, dtype, 20 + row)
+        for p in range(0, n, t):          # later laps overwrite the slots
+            k[row, :min(t, n - p)] = kn[p:p + t]
+            v[row, :min(t, n - p)] = vn[p:p + t]
+    lens = torch.tensor([min(n, t) for n in written], dtype=torch.int32,
+                        device=dev)
+    half = t // 2
+    DA.reset_counts()
+    parts = [DA.decode_mha(q, k[:, r * half:(r + 1) * half].contiguous(),
+                           v[:, r * half:(r + 1) * half].contiguous(),
+                           (lens - r * half).clamp(0, half),
+                           return_lse=True) for r in range(2)]
+    whole = DA.decode_mha(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert DA.COUNTS["decode_attention"] == 3
+    outs = torch.stack([o for o, _ in parts])
+    lses = torch.stack([l for _, l in parts])
+    merged = DA.merge_slices(outs, lses)[:, 0]
+    # each half's output is rounded to its dtype before the merge
+    w = DA.merge_weights(lses)[:, :, None, :, None]
+    halves = torch.finfo(dtype).eps / 2 * (w * outs.float().abs()).sum(0)
+    halves = halves[:, 0]
+    _close(merged, whole[:, 0], FA.attention_tolerance(whole[:, 0])
+           + halves)
+    plain = DA.decode_attention_ref(q[:, 0].cpu().float(),
+                                    k.cpu().float(), v.cpu().float(),
+                                    lens.cpu())
+    _close(merged.cpu().float(), plain,
+           FA.attention_tolerance(plain.to(dtype)) + halves.cpu())
+
+
+@pytest.mark.cuda
 def test_attention_wrappers_check_their_inputs():
     dev = _card()
     q = _normal((1, 64, 2, 48), dev)

@@ -205,13 +205,15 @@ dist.destroy_process_group()
 '''
 
 
-def _spawn(tmp_path, archs):
+def _spawn(tmp_path, archs, script=_RANK):
+    """``script`` on four gloo ranks (argv: rank, store, results file,
+    archs); rank 0's results."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     out = tmp_path / "results.json"
     logs = [open(tmp_path / f"log.{r}", "w+") for r in range(4)]
     procs = [subprocess.Popen(
-        [sys.executable, "-X", "faulthandler", "-c", _RANK, str(r),
+        [sys.executable, "-X", "faulthandler", "-c", script, str(r),
          str(tmp_path / "store"),
          str(out), ",".join(archs)],
         env=env, stdout=logs[r], stderr=subprocess.STDOUT, text=True)
@@ -281,17 +283,24 @@ def test_decode_never_gathers_the_cache(runs, arch):
 
 def test_other_families_refuse_the_mesh():
     """``build_case``'s step raises for the families a mesh does not run
-    yet (ROADMAP.md item 24), and for the window variant, without running
-    them unsharded."""
+    yet (rwkv6 and the hybrid, ROADMAP.md item 25), without running them
+    unsharded; the attention-block families and the window variant get
+    their step (run on a mesh in ``test_torch_mesh_families.py``)."""
+    from repro_torch.models.transformer import mesh_ready
     mesh = make_test_mesh(2, 2)
+    for arch in ("rwkv6-7b", "zamba2-7b"):
+        for shape in ("train_4k", "decode_32k"):
+            case = specs.build_case(arch, shape, mesh)
+            with pytest.raises(NotImplementedError, match="item 25"):
+                case["fn"](*case["args"])
     for arch, shape in (("mixtral-8x7b", "train_4k"),
-                        ("rwkv6-7b", "decode_32k"),
-                        ("smollm-360m", "long_500k")):
+                        ("smollm-360m", "long_500k"),
+                        ("smollm-360m", "decode_32k")):
         case = specs.build_case(arch, shape, mesh)
-        with pytest.raises(NotImplementedError, match="item 24"):
-            case["fn"](*case["args"])
-    case = specs.build_case("smollm-360m", "decode_32k", mesh)
-    assert callable(case["fn"])
+        assert mesh_ready(case["cfg"]) and callable(case["fn"])
+        assert case["fn"].__name__ != "refuse"
+    assert specs.build_case("smollm-360m", "long_500k",
+                            mesh)["cfg"].sliding_window == 4096
 
 
 def test_distribute_raises_on_a_leaf_without_a_spec():

@@ -7,7 +7,7 @@ return the spec it is given, and runs JAX's ``constrain`` under its
 ``activation_sharding`` with a stand-in mesh (``axis_names`` and
 ``devices.shape``, as ``test_torch_launch.py`` stands in for the
 production meshes), so no 512-device backend is made.  The grid: every
-spec the dense family's call sites pass (``models/layers.py`` and
+spec the call sites pass (``models/layers.py``, ``models/moe.py`` and
 ``models/transformer.py`` of both packages, and the port's own pins of the
 heads, positions and tokens), at each arch's widths and each shape of
 ``configs/shapes.py``, on pod16x16, pod2x16x16 and 2 x 2, with the batch
@@ -27,6 +27,7 @@ from repro_torch.configs.archs import ALL_ARCHS
 from repro_torch.configs.shapes import SHAPES
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import sharding as sh
+from repro_torch.models import moe
 from repro_torch.utils import pjit_utils as pj
 
 MESHES = {"pod16x16": (("data", "model"), (16, 16)),
@@ -34,13 +35,27 @@ MESHES = {"pod16x16": (("data", "model"), (16, 16)),
           "2x2": (("data", "model"), (2, 2))}
 
 
-def _call_sites(cfg, shape):
-    """(shape, spec with the port's BATCH) of every constraint the dense
-    family's step passes at ``cfg``'s widths and ``shape``'s size."""
+def _call_sites(cfg, shape, groups=1):
+    """(shape, spec with the port's BATCH) of every constraint the step
+    passes at ``cfg``'s widths and ``shape``'s size: the dense family's,
+    MoE's (``models/moe.py:90``, ``:100``, ``:114``, ``:117``, ``:127`` of
+    the JAX package, at the groups its rule picks from ``groups`` batch
+    shards) and audio's logits (``transformer.py:425``)."""
     b, s = shape.global_batch, shape.seq_len
     h, hkv, d, v = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.vocab_size
     B = pj.BATCH
-    return [
+    extra = []
+    if cfg.is_moe:
+        e, t = cfg.n_experts, b * s
+        g = 1 if t % groups or t // groups < e else groups
+        tg = t // g
+        c = min(moe.capacity(tg, cfg), tg * cfg.top_k)
+        extra = [((g, tg, cfg.d_model), (B, None, None)),          # xt, y
+                 ((g, e, c, cfg.d_model), (B, None, None, None)),  # in, out
+                 ((g, e, c, cfg.d_ff), (B, None, None, "model"))]  # hidden
+    if cfg.family == "audio":
+        extra.append(((b, s, cfg.n_codebooks, v), (B, None, None, "model")))
+    return extra + [
         ((b, s, cfg.d_model), (B, None, None)),          # embed, block out
         ((b, s, v), (B, None, "model")),                 # logits
         ((b, v), (B, "model")),                          # last-token logits
@@ -84,7 +99,9 @@ def test_resolve_spec_matches_jax_constrain(arch, mesh_name):
     for shape in SHAPES.values():
         axes = sh.pick_batch_axes(tm, shape.global_batch,
                                   allow_model=shape.kind == "train")
-        for dims, spec in _call_sites(cfg, shape):
+        groups = int(np.prod([tm.axis_sizes[a] for a in axes]))
+        sites = _call_sites(cfg, shape, groups)
+        for dims, spec in sites:
             want, ctx = _jax_spec(mesh_name, axes, dims, spec)
             got = pj.resolve_spec(dims, spec, names, tm.axis_sizes, axes)
             assert _normal(got) == want, (shape.name, dims, spec)
@@ -92,7 +109,8 @@ def test_resolve_spec_matches_jax_constrain(arch, mesh_name):
                 assert (pj.batch_shard_count(),
                         pj.current_batch_axes()) == ctx
             n += 1
-    assert n == len(SHAPES) * 12
+    assert n == len(SHAPES) * (12 + 3 * cfg.is_moe
+                               + (cfg.family == "audio"))
 
 
 @pytest.mark.parametrize("axes", [(), ("data",), ("model",),
