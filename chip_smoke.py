@@ -150,7 +150,16 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    filling its 4096-slot ring, 2,048 slots a rank), musicgen-medium and
    llava-next-mistral-7b (2 of 32 layers, 1,152 image embeds) in bf16,
    each against the one-device run under the same context (MoE in bf16
-   on the one-device run's expert choices, its own flips counted).
+   on the one-device run's expert choices, its own flips counted);
+13. then the same for the recurrent families (``phase_mesh_recurrent``):
+   rwkv6-7b (2 of 32 layers; two bf16 AdamW steps at B 4 x 512, the
+   batch over ('data', 'model'); a generate of B 2 x 256 in f32 and bf16,
+   the 64 heads over 'model') and zamba2-7b (7 of 81 layers: a period
+   of six mamba2 blocks with the shared attention block, and a tail
+   block; two bf16 steps at B 2 x 512, the SSM and attention heads over
+   'model'; a generate of B 2 x 256 in f32 and bf16), the states held in
+   the plan's placements after prefill and every decode step and never
+   gathered in a decode step.
 
 It prints the kernel table as JSON, the card line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Exits nonzero,
@@ -2151,21 +2160,33 @@ def _host_ms(fn, cases, reps):
 PROFILE_CALLS = 50
 
 
+#: profiler sessions a device time is asked of before it fails: late in a
+#: run a session can record no kernel at all (none of 50 zamba2 bf16
+#: flash launches in one whole run, every one in the run before it)
+PROFILE_SESSIONS = 3
+
+
 def _device_ms_per_call(fn, cases, reps, keys):
     """Device time per call of the kernels whose names hold one of
     ``keys`` (each launched once a call), by torch.profiler: the kernels
     alone, without the gaps the host leaves between calls.  Each kernel's
     mean over the launches the profiler recorded, which can be fewer than
-    ``reps`` (then printed); none recorded raises."""
+    ``reps`` (then printed); a session that recorded none is run again, up
+    to PROFILE_SESSIONS (printed); none recorded in any raises."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(cases[i % len(cases)])
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    found = [e for e in events
-             if any(k in e.key for k in keys) and _device_ms(e) > 0]
+    for session in range(PROFILE_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(cases[i % len(cases)])
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        found = [e for e in events
+                 if any(k in e.key for k in keys) and _device_ms(e) > 0]
+        if found:
+            break
+        print(f"profiler: session {session + 1} recorded no device time "
+              f"of {keys}", flush=True)
     if not found:
         seen = sorted(events, key=_device_ms, reverse=True)[:5]
         raise AssertionError(
@@ -3363,8 +3384,20 @@ MESH_FAMILY_GEN = (
     ("mixtral-8x7b", 1, 1, 4096, (torch.float32, torch.bfloat16)),
     ("musicgen-medium", None, 2, 256, (torch.bfloat16,)),
     ("llava-next-mistral-7b", 2, 1, 128, (torch.bfloat16,)))
+#: ``phase_mesh_recurrent``'s runs: depth cut only for the phase's time,
+#: rwkv6-7b to 2 of 32 layers, zamba2-7b to 7 of 81 (one period of six
+#: mamba2 blocks with its call of the shared attention block, and one tail
+#: block; 13 layers, two shared calls, ran 79 s alone: PERF.md §6).
+#: rwkv6 trains at B 4 over ('data', 'model') (each rank all 64 heads,
+#: eight 64-token wkv chunks), zamba2 at B 2 over ('data',).
+MESH_RECURRENT_TRAIN = (("rwkv6-7b", 2, torch.bfloat16, 4),
+                        ("zamba2-7b", 7, torch.bfloat16, 2))
+MESH_RECURRENT_GEN = (
+    ("rwkv6-7b", 2, 2, 256, (torch.float32, torch.bfloat16)),
+    ("zamba2-7b", 7, 2, 256, (torch.float32, torch.bfloat16)))
 MESH_PHASES = {"step": (MESH_TRAIN, MESH_GEN),
-               "families": (MESH_FAMILY_TRAIN, MESH_FAMILY_GEN)}
+               "families": (MESH_FAMILY_TRAIN, MESH_FAMILY_GEN),
+               "recurrent": (MESH_RECURRENT_TRAIN, MESH_RECURRENT_GEN)}
 #: mesh step vs one device: ce and grad_norm relative (bf16: ce only, the
 #: train contract's)
 MESH_TRAIN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
@@ -3508,6 +3541,7 @@ def mesh_train_run(arch, dtype, b, depth=None, mesh=None, dm=None, ref=None):
                batch_axes=list(axes))
     routes, tally = [], dict(flips=0, tokens=0)
     calls = iter(ref or ())
+    torch.cuda.reset_peak_memory_stats()
     for i in range(MESH_TRAIN_STEPS):
         batch = _mesh_batch(cfg, b, MESH_SEQ, 100 + i)
         if dm is not None:
@@ -3527,6 +3561,7 @@ def mesh_train_run(arch, dtype, b, depth=None, mesh=None, dm=None, ref=None):
         if mode is not None:
             out["collectives"] = {str(k).split(".")[-1]: v for k, v in
                                   mode.get_comm_counts().items()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     if cfg.is_moe:
         if dm is None:
             out["routes"] = [r.cpu().numpy().astype(np.int16)
@@ -3543,13 +3578,17 @@ def mesh_generate_run(arch, b, prompt, dtype, fed=None, depth=None,
     """Prefill ``prompt`` tokens (a vlm's after its image embeds), then
     MESH_NEW - 1 decode steps (fed the tokens ``fed``, else greedy), inside
     ``activation_sharding`` as ``mesh_train_run``'s: the logits of each
-    step, the tokens fed, the wall, the cache's slots and a rank's share of
-    them, and MoE's expert choices (one device) or their flips against
-    ``ref`` (the mesh, replayed in bf16); on the mesh, one more decode step
+    step, the tokens fed, the wall, the peak memory, the attention cache's
+    slots and a rank's share of them (none for rwkv6), and MoE's expert
+    choices (one device) or their flips against ``ref`` (the mesh,
+    replayed in bf16); on the mesh, the state and cache leaves whose
+    placements differ from the plan's (``sharding.cache_shardings``)
+    after prefill and after each decode step, and one more decode step
     after the timed ones with DTensor's collectives recorded (``utils.
     dist.dtensor_collectives``): their count by kind, the largest
-    all-gather's elements and the all-gathers of as many elements as a
-    rank's shard of a layer's k or v cache (there must be none)."""
+    all-gather's elements and the all-gathers of a state or cache shard
+    (there must be none): of a leaf itself or a view of it (its storage),
+    or of as many elements as a rank's shard of a layer's k or v cache."""
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.specs import build_case_from_cfg
@@ -3576,17 +3615,31 @@ def mesh_generate_run(arch, b, prompt, dtype, fed=None, depth=None,
                                       compute_dtype=dtype)["fn"]
         decode = build_case_from_cfg(cfg, "decode_32k", mesh,
                                      compute_dtype=dtype)["fn"]
+    c_specs = sh.cache_shardings(cache, cfg, mesh)["blocks"]
+
+    def leaves():
+        return list(sh.leaves_with_specs(cache["blocks"], c_specs))
+
+    def misplaced():
+        return [p for p, t, spec in leaves()
+                if tuple(t.placements) != sh.placements(spec, mesh)]
+
     logits, sent, counts, largest, cache_gathers = [], [], {}, 0, []
-    k0 = cache["blocks"][0]["k"]
-    local = k0.to_local() if dm is not None else k0
-    shard = int(np.prod(local.shape) if dm is not None else 0)
+    k0 = next((t for p, t, _ in leaves() if p.endswith("/k")), None)
+    local = k0.to_local() if dm is not None and k0 is not None else k0
+    shard = int(np.prod(local.shape) if dm is not None and k0 is not None
+                else 0)
     routes, tally = [], dict(flips=0, tokens=0)
+    placed = []
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with activation_sharding(mesh, axes, dm):
         with _routing(cfg, dtype, routes, iter(ref or ()), dm, axes, tally):
             out, cache = prefill(params, batch, cache)
             for i in range(MESH_NEW):
+                if dm is not None:
+                    placed.append(misplaced())
                 full = (out.full_tensor() if hasattr(out, "full_tensor")
                         else out)
                 logits.append(full.float().cpu().numpy())
@@ -3599,18 +3652,26 @@ def mesh_generate_run(arch, b, prompt, dtype, fed=None, depth=None,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         if dm is not None:
+            held = {t.to_local().untyped_storage().data_ptr()
+                    for _, t, _ in leaves()}
             with dtensor_collectives() as (mode, calls):
-                decode(params, tok, cache)
+                _, cache = decode(params, tok, cache)
+            placed.append(misplaced())
             counts = {str(k).split(".")[-1]: v
                       for k, v in mode.get_comm_counts().items()}
-            gathers = [int(np.prod(c.shape)) for c in calls
-                       if "gather" in c.name]
-            largest = max([0] + gathers)
-            cache_gathers = [n for n in gathers if n == shard]
+            gathers = [c for c in calls if "gather" in c.name]
+            largest = max([0] + [int(np.prod(c.shape)) for c in gathers])
+            cache_gathers = [list(c.shape) for c in gathers
+                             if c.storage in held
+                             or int(np.prod(c.shape)) == shard]
     res = dict(logits=np.stack(logits), fed=np.stack(sent), wall_s=wall,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                decode_collectives=counts, largest_gather=largest,
                cache_shard=shard, cache_gathers=cache_gathers,
-               cache_slots=[int(k0.shape[1]), int(local.shape[1])])
+               misplaced=sorted({p for step in placed for p in step}),
+               placement_checks=len(placed),
+               cache_slots=(None if k0 is None else
+                            [int(k0.shape[1]), int(local.shape[1])]))
     if cfg.is_moe:
         if dm is None:
             res["routes"] = [r.cpu().numpy().astype(np.int16)
@@ -3764,14 +3825,17 @@ def _mesh_phase(phase, label):
                    seq=MESH_SEQ, batch_axes=mesh["batch_axes"],
                    ce=mesh["ce"], ce_one_device=one["ce"], rel_err=errs,
                    wall_s=mesh["wall_s"], wall_s_one_device=one["wall_s"],
+                   peak_gib=mesh["peak_gib"],
+                   peak_gib_one_device=one["peak_gib"],
                    collectives=mesh["collectives"], routing_flips=flips)
         report["train"].append(row)
         print(f"{label} train {arch} {name} B{b}x{MESH_SEQ} over "
               f"{mesh['batch_axes']}: ce {mesh['ce']} (one device "
               f"{one['ce']}), rel err ce {errs['ce']:.2e} grad_norm "
               f"{errs['grad_norm']:.2e}, wall/step {mesh['wall_s']} s "
-              f"(one device {one['wall_s']}), collectives/step "
-              f"{mesh['collectives']}"
+              f"(one device {one['wall_s']}), peak {mesh['peak_gib']:.2f} "
+              f"GiB a rank (one device {one['peak_gib']:.2f}), "
+              f"collectives/step {mesh['collectives']}"
               + (f", routing flips by rank {flips}"
                  + (" (replayed)" if dtype == torch.bfloat16 else "")
                  if flips else "") + f" {'ok' if ok else 'FAIL'}",
@@ -3791,7 +3855,8 @@ def _mesh_phase(phase, label):
         ok = (err <= LOGIT_TOL[dtype] and np.isfinite(got_l).all()
               and got_l.shape == want.shape
               and (same or dtype != torch.float32)
-              and not mesh["cache_gathers"])
+              and not mesh["cache_gathers"] and not mesh["misplaced"]
+              and mesh["placement_checks"] == MESH_NEW + 1)
         row = dict(arch=arch, layers=depth, dtype=name, batch=b,
                    prompt=prompt, new=MESH_NEW, logit_err=err,
                    logit_err_steps=steps, tokens_equal=same,
@@ -3800,6 +3865,9 @@ def _mesh_phase(phase, label):
                    largest_gather=mesh["largest_gather"],
                    cache_shard=mesh["cache_shard"],
                    cache_gathers=mesh["cache_gathers"],
+                   misplaced=mesh["misplaced"],
+                   peak_gib=mesh["peak_gib"],
+                   peak_gib_one_device=one["peak_gib"],
                    cache_slots=mesh["cache_slots"], routing_flips=flips)
         report["generate"].append(row)
         cut = "" if depth is None else f" ({depth} layers)"
@@ -3811,9 +3879,13 @@ def _mesh_phase(phase, label):
               f"{mesh['wall_s']:.2f} s (one device {one['wall_s']:.2f}),"
               f" collectives/decode step {mesh['decode_collectives']}, "
               f"largest all-gather {mesh['largest_gather']} elements, "
-              f"of a layer's k or v cache shard "
-              f"({mesh['cache_shard']}): {len(mesh['cache_gathers'])}, "
-              f"cache slots / a rank {mesh['cache_slots']}"
+              f"of a state or cache shard (a layer's k or v cache shard: "
+              f"{mesh['cache_shard']}): {len(mesh['cache_gathers'])}, "
+              f"leaves off the plan's placements after "
+              f"{mesh['placement_checks']} checks {mesh['misplaced']}, "
+              f"cache slots / a rank {mesh['cache_slots']}, peak "
+              f"{mesh['peak_gib']:.2f} GiB a rank (one device "
+              f"{one['peak_gib']:.2f})"
               + (f", routing flips by rank {flips}"
                  + (" (replayed)" if dtype == torch.bfloat16 else "")
                  if flips else "") + f" {'ok' if ok else 'FAIL'}",
@@ -3874,6 +3946,25 @@ def phase_mesh_families():
     return report
 
 
+def phase_mesh_recurrent():
+    """``phase_mesh_step`` for the recurrent families (MESH_RECURRENT_TRAIN,
+    MESH_RECURRENT_GEN), at full width, random weights from seed 0:
+    rwkv6-7b (2 of 32 layers) two bf16 AdamW steps with f32 masters at B 4
+    x 512 (batch over ('data', 'model'): each rank all 64 heads, eight
+    64-token wkv chunks) and a generate of B 2 x 256 + 8 in f32 and bf16
+    (batch over 'data', the 64 heads and the wkv state S over 'model');
+    zamba2-7b (7 of 81 layers: a period of six mamba2 blocks followed by
+    the shared attention block, and one tail block) two bf16
+    steps at B 2 x 512 (the 112 SSM heads and the shared block's 32
+    attention heads over 'model') and a generate of B 2 x 256 + 8 in f32
+    and bf16 (flash at head_dim 112 on each rank's 16 heads, decode over
+    each rank's T-slice of each call's cache).  Each run is held against
+    the same run on one device under the same ``activation_sharding``
+    context, as ``_mesh_phase`` holds them, the states in the plan's
+    placements after prefill and every decode step."""
+    return _mesh_phase("recurrent", "mesh recurrent")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3910,6 +4001,7 @@ def main() -> int:
     # last: their four extra processes on the card perturb no timing
     mesh_step = phase_mesh_step()
     mesh_families = phase_mesh_families()
+    mesh_recurrent = phase_mesh_recurrent()
     head = shapes["vehicle_sensor"]
     shapes["cohort_k256"] = dict(cohort["kernel"],
                                  max_abs_err=errs["cohort"])
@@ -3925,13 +4017,17 @@ def main() -> int:
                    "families": families["flash_attention"],
                    "mesh_step": mesh_step["launches"]["flash_attention"],
                    "mesh_families":
-                       mesh_families["launches"]["flash_attention"]}
+                       mesh_families["launches"]["flash_attention"],
+                   "mesh_recurrent":
+                       mesh_recurrent["launches"]["flash_attention"]}
     decode_paths = {"lm_generate": sum(lm[dt]["counts"]["decode_attention"]
                                        for dt in ("float32", "bfloat16")),
                     "families": families["decode_attention"],
                     "mesh_step": mesh_step["launches"]["decode_attention"],
                     "mesh_families":
-                        mesh_families["launches"]["decode_attention"]}
+                        mesh_families["launches"]["decode_attention"],
+                    "mesh_recurrent":
+                        mesh_recurrent["launches"]["decode_attention"]}
     kernels = [dict(
         name="sdca_local_solve", route="cuda",
         source="src/repro_torch/kernels/sdca/csrc/sdca.cu",
@@ -3976,6 +4072,7 @@ def main() -> int:
     print(json.dumps({"dryrun": dry}))
     print(json.dumps({"mesh_step": mesh_step}))
     print(json.dumps({"mesh_families": mesh_families}))
+    print(json.dumps({"mesh_recurrent": mesh_recurrent}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,7 @@ production mesh (``launch.sharding``), and records what one device holds:
 ``temp_bytes``, ``flops_hlo`` and ``collectives`` are the compiler's half
 (the JAX package reads them from XLA's compiled step) and stay ``null``
 here: ROADMAP.md item 23, a cost probe of the sharded step that
-``build_case``'s ``fn`` runs on a mesh (the attention-block families;
-rwkv6 and the hybrid are item 25).
+``build_case``'s ``fn`` runs on a mesh (every family).
 
 Records land in results/dryrun_torch/<arch>__<shape>__<mesh>.json.
 

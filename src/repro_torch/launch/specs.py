@@ -9,10 +9,9 @@ JAX package's does, the step itself, ``fn``: ``make_train_step(
 param_specs=)`` for training, ``Model.prefill`` and ``Model.decode_step``
 over a params argument for serving.  ``fn`` runs on the same trees placed
 on a mesh (``sharding.distribute``) inside ``utils.pjit_utils.
-activation_sharding(mesh, batch_axes, device_mesh)``, for the
-attention-block families (dense, MoE, vlm, audio) and the window variant;
-for rwkv6 and the hybrid it raises, naming ROADMAP.md item 25.  Nothing is
-compiled.
+activation_sharding(mesh, batch_axes, device_mesh)``, for every family
+(dense, MoE, vlm, audio, rwkv6, the mamba2/zamba2 hybrid) and the window
+variant.  Nothing is compiled.
 
 Every leaf has the JAX package's dtype: int32 tokens, bf16 image
 embeddings, bf16 weights where JAX casts them (every float32 leaf of rank
@@ -39,8 +38,7 @@ from repro_torch.configs.base import ArchConfig, get_config
 from repro_torch.configs.shapes import InputShape, get_shape
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import MeshSpec
-from repro_torch.models.layers import MESH_LATER
-from repro_torch.models.transformer import Model, mesh_ready
+from repro_torch.models.transformer import Model
 from repro_torch.train.loop import (TrainConfig, make_optimizer,
                                     make_train_step)
 
@@ -121,19 +119,10 @@ def serve_param_specs(model: Model, dtype: torch.dtype = torch.bfloat16):
     return _cast_as_stacked(model, dtype)
 
 
-def _not_on_mesh(cfg: ArchConfig):
-    def refuse(*args):
-        raise NotImplementedError(f"{cfg.name} (window {cfg.sliding_window})"
-                                  f" on a mesh: {MESH_LATER}")
-    return refuse
-
-
 def _step_fn(model: Model, kind: str, dtype: torch.dtype, tc=None,
              param_specs=None):
     """The step of ``kind`` over explicit arguments, as ``args`` orders
     them."""
-    if not mesh_ready(model.cfg):
-        return _not_on_mesh(model.cfg)
     if kind == "train":
         return make_train_step(model, tc, param_specs=param_specs)
     if kind == "prefill":

@@ -16,9 +16,9 @@ over the cache through ``decode_mha`` (also over a sliding window's ring
 buffer).  Caches are updated in place.
 
 On a mesh (the parameters and the batch are DTensors, inside
-``utils.pjit_utils.activation_sharding``) the attention of every
-attention-block family (dense, MoE, vlm, audio) pins its activations where
-the JAX package does and runs on each rank's local shards
+``utils.pjit_utils.activation_sharding``) the attention of every family
+that has it (dense, MoE, vlm, audio, zamba2's shared block) pins its
+activations where the JAX package does and runs on each rank's local shards
 (``_mesh_attention``): flash over the rank's heads in training and
 prefill, each rank's slice of a sequence-sharded cache in decode (a
 window's ring too), merged by the slices' log-sum-exps; the cache is never
@@ -42,9 +42,6 @@ Params = Mapping[str, torch.Tensor]
 #: cached attention the port does not run yet
 _CACHED_LATER = ("ROADMAP.md Queue 1 item 14e (a segment into a non-empty "
                  "cache, a prompt longer than the window's ring)")
-#: what the port does not run on a mesh yet
-MESH_LATER = ("ROADMAP.md Queue 1 item 25 (rwkv6 and the mamba2/zamba2 "
-              "hybrid on a mesh)")
 
 
 # ---------------------------------------------------------------------------
@@ -90,12 +87,21 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the sum rounded to bf16 once, as the one-device bf16 product
     accumulates in f32 and rounds once: parts rounded to bf16 before the
     sum would each add a rounding, which granite-3-2b's 40 layers carry
-    past the serving contract's bf16 limit (PERF.md, PR 23)."""
-    if not (pj.on_mesh(w) and x.dtype == torch.bfloat16
-            and any(p.is_shard(w.dim() - 2) and not q.is_shard(0)
-                    for p, q in zip(w.placements, x.placements))):
+    past the serving contract's bf16 limit (PERF.md §6).  On a mesh
+    the FSDP gather is made here, before any product: left to itself
+    DTensor may keep ``w`` split where ``x``'s rows are and move ``x``
+    instead (it weighs the bytes), and the backward then hands ``x`` a
+    gradient laid out as no activation is, which the card's torch cannot
+    redistribute (PERF.md §6)."""
+    if not pj.on_mesh(w):
         return x @ w
     from torch.distributed.tensor import Replicate
+    w = w.redistribute(w.device_mesh, [
+        Replicate() if q.is_shard(0) else p
+        for p, q in zip(w.placements, x.placements)])
+    if not (x.dtype == torch.bfloat16
+            and any(p.is_shard(w.dim() - 2) for p in w.placements)):
+        return x @ w
     out = x.float() @ w.float()
     out = out.redistribute(out.device_mesh, [
         Replicate() if p.is_partial() else p for p in out.placements])

@@ -12,6 +12,17 @@ state carried from chunk to chunk, with the decay algebra in log space (the
 exps are <= 1).  Plain torch, as it is plain jnp there: no kernel.  Decode
 is the same function on one token with the conv window and the SSM state
 carried.
+
+On a mesh (DTensor parameters and activations inside ``utils.pjit_utils.
+activation_sharding``) the products go through ``layers.matmul``; the
+in_proj output is brought whole on each rank's rows before it is cut into
+z | xBC | dt (one all-gather a layer: the cuts do not fall on the
+``model`` split), the causal conv runs on each rank's rows with its
+window state split as the plan splits it (batch only), and the SSD scan
+runs on each rank's batch rows and heads (``pjit_utils.local``), B and C
+repeated to the heads first, so that a rank's heads carry their own
+groups whatever ``ssm_groups`` is; its state is split over heads as the
+plan splits it.
 """
 from __future__ import annotations
 
@@ -22,7 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
 from repro_torch.models.layers import normal_init
+from repro_torch.utils import pjit_utils as pj
+from repro_torch.utils.pjit_utils import BATCH, constrain
 
 Params = Mapping[str, torch.Tensor]
 
@@ -60,6 +74,16 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     # windowed sum: sum_j w[j] * x[t - (kw-1) + j]
     out = sum(pad[:, j:j + s] * w[j].to(xbc.dtype) for j in range(kw))
     return F.silu(out + b.to(xbc.dtype))
+
+
+def _conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+          ) -> torch.Tensor:
+    """``_causal_conv``; on a mesh on each rank's rows of ``xbc`` (its
+    other dims whole), the weights gathered whole."""
+    if not pj.on_mesh(xbc):
+        return _causal_conv(xbc, w, b)
+    return pj.local(_causal_conv, xbc.placements, xbc, pj.whole(w),
+                    pj.whole(b))
 
 
 def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
@@ -126,6 +150,32 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     return (y_intra + y_inter).reshape(b, t, h, p), s_run
 
 
+def _ssd(x, dt, B, C, A, chunk: int, state0):
+    """``ssd_chunked``; on a mesh on each rank's batch rows and heads
+    (``pjit_utils.local``): x, dt, B and C (repeated to the heads) pinned
+    as JAX pins them (``mamba2.py:100-107``), A split as x's heads are,
+    the state entering and leaving as (BATCH, ``model``, None, None)
+    (``:152``); y keeps x's placements."""
+    if not pj.on_mesh(x):
+        return ssd_chunked(x, dt, B, C, A, chunk, state0)
+    rep = x.shape[2] // B.shape[2]
+    B, C = (constrain(pj.local(lambda t: t.repeat_interleave(rep, dim=2),
+                               t.placements, t), BATCH, None, "model", None)
+            for t in (B, C))
+    b, _, h, p = x.shape
+    s_out = pj.spec_placements((b, h, p, B.shape[3]), BATCH, "model", None,
+                               None)
+    if state0 is not None:
+        state0 = state0.float().redistribute(state0.device_mesh, s_out)
+
+    def scan(x, dt, B, C, A, state0):
+        return ssd_chunked(x, dt, B, C, A, chunk, state0)
+
+    return pj.local(scan, (x.placements, s_out), x,
+                    constrain(dt, BATCH, None, "model"), B, C,
+                    pj.align(A, 0, x, 2), state0)
+
+
 def mamba2_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
                  state: Optional[Dict[str, torch.Tensor]] = None,
                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
@@ -136,21 +186,24 @@ def mamba2_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     dt_ = x.dtype
     h, p, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
     d_inner, _ = dims(cfg)
-    zxbcdt = x @ params["in_proj"].to(dt_)
+    zxbcdt = L.matmul(x, params["in_proj"].to(dt_))
+    # whole on each rank's rows before the cuts (z | xBC | dt), which do
+    # not fall on the split of the last dim over ``model``
+    zxbcdt = constrain(zxbcdt, BATCH, None, None)
     z = zxbcdt[..., :d_inner]
     xbc = zxbcdt[..., d_inner:-h]
     dt_raw = zxbcdt[..., -h:]
 
     if state is not None:
         xbc_in = torch.cat([state["conv"].to(dt_), xbc], dim=1)
-        conv_out = _causal_conv(xbc_in, params["conv_w"],
-                                params["conv_b"])[:, -s:]
+        conv_out = _conv(xbc_in, params["conv_w"], params["conv_b"])[:, -s:]
         new_conv = xbc_in[:, -(cfg.conv_width - 1):]
     else:
-        conv_out = _causal_conv(xbc, params["conv_w"], params["conv_b"])
+        conv_out = _conv(xbc, params["conv_w"], params["conv_b"])
         new_conv = xbc[:, -(cfg.conv_width - 1):]
 
-    x_ssd = conv_out[..., :d_inner].reshape(b, s, h, p).float()
+    x_ssd = constrain(conv_out[..., :d_inner].reshape(b, s, h, p).float(),
+                      BATCH, None, "model", None)
     B = conv_out[..., d_inner:d_inner + g * n].reshape(b, s, g, n)
     C = conv_out[..., d_inner + g * n:].reshape(b, s, g, n)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
@@ -159,12 +212,12 @@ def mamba2_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     chunk = min(cfg.ssm_chunk, s)
     if s % chunk != 0:
         chunk = 1 if s == 1 else s   # degenerate safe fallback
-    y, s_final = ssd_chunked(x_ssd, dt, B.float(), C.float(), A, chunk,
-                             state["ssm"] if state is not None else None)
+    y, s_final = _ssd(x_ssd, dt, B.float(), C.float(), A, chunk,
+                      state["ssm"] if state is not None else None)
     y = y + params["D"][None, None, :, None] * x_ssd
-    y = y.reshape(b, s, d_inner).to(dt_)
+    y = pj.pin_grad(y.reshape(b, s, d_inner).to(dt_))
     y = _gated_rmsnorm(y, z, params["norm_scale"])
-    out = y @ params["out_proj"].to(dt_)
+    out = L.matmul(y, params["out_proj"].to(dt_))
     new_state = ({"conv": new_conv, "ssm": s_final}
                  if state is not None else None)
     return out, new_state

@@ -142,15 +142,6 @@ def _combine(expert_out: torch.Tensor, dest_e, dest_c, inv, weights, k: int
     return torch.stack(ys)
 
 
-def _whole(x: torch.Tensor) -> torch.Tensor:
-    """A DTensor replicated on every mesh dim (partial sums reduced); a
-    plain tensor as it is."""
-    if not pj.on_mesh(x):
-        return x
-    from torch.distributed.tensor import Replicate
-    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
-
-
 def moe_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
               capacity_override: Optional[int] = None,
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -176,7 +167,7 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     if pj.on_mesh(xt):
         rows = tuple(xt.placements)
         (expert_in, dest_e, dest_c, inv, weights, keep, probs, lse,
-         assign) = pj.local(route, (rows,) * 9, xt, _whole(router))
+         assign) = pj.local(route, (rows,) * 9, xt, pj.whole(router))
     else:
         (expert_in, dest_e, dest_c, inv, weights, keep, probs, lse,
          assign) = route(xt, router)
@@ -205,11 +196,11 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     y = constrain(y, BATCH, None, None)
 
     # means over (groups, tokens): each group holds as many tokens
-    frac_assigned = _whole(assign.reshape(-1, e).mean(0)) * e
-    mean_prob = _whole(probs.reshape(-1, e).mean(0)) * e
+    frac_assigned = pj.whole(assign.reshape(-1, e).mean(0)) * e
+    mean_prob = pj.whole(probs.reshape(-1, e).mean(0)) * e
     lb_loss = torch.mean(frac_assigned * mean_prob)
-    z_loss = _whole(lse.square().mean())
+    z_loss = pj.whole(lse.square().mean())
     aux = {"moe_lb": cfg.router_aux_weight * lb_loss,
            "moe_z": cfg.router_z_weight * z_loss,
-           "moe_drop_frac": 1.0 - _whole(keep.float().mean())}
+           "moe_drop_frac": 1.0 - pj.whole(keep.float().mean())}
     return y.reshape(b, s, d), aux

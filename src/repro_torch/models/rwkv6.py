@@ -10,6 +10,14 @@ token-shift-mixed input and a per-channel data-dependent decay
 The wkv recurrence runs as the JAX package's chunked scan (plain torch, as
 it is plain jnp there: no kernel).  Decode carries (x_prev_tm, x_prev_cm,
 S) per layer: O(1) per token, no KV cache.
+
+On a mesh (DTensor parameters and activations inside ``utils.pjit_utils.
+activation_sharding``) the token shift runs with D split over ``model``,
+as the plan splits the states ``x_prev_tm`` and ``x_prev_cm``, so that no
+state is gathered; the products go through ``layers.matmul``; r, k, v
+and the decay are pinned where the JAX package pins them (heads over
+``model``) and the scan runs on each rank's batch rows and heads
+(``pjit_utils.local``) with its state ``S`` split as the plan splits it.
 """
 from __future__ import annotations
 
@@ -19,7 +27,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
 from repro_torch.models.layers import normal_init
+from repro_torch.utils import pjit_utils as pj
+from repro_torch.utils.pjit_utils import BATCH, constrain
 
 Params = Mapping[str, torch.Tensor]
 
@@ -68,36 +79,80 @@ def channel_mix_init(gen: torch.Generator, cfg: ArchConfig
 
 
 def _group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                n_heads: int, eps: float = 1e-5) -> torch.Tensor:
-    """Per-head group norm over the channel dim (RWKV's ln_x)."""
-    b, s, d = x.shape
-    xf = x.float().reshape(b, s, n_heads, d // n_heads)
+                eps: float = 1e-5) -> torch.Tensor:
+    """Per-head group norm (RWKV's ln_x) of x (B, S, H, N), returned as
+    (B, S, H * N): on a mesh each rank's heads alone."""
+    b, s, h, n = x.shape
+    scale, bias = pj.whole(scale), pj.whole(bias)
+    xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, unbiased=False)
-    xf = (xf - mean) * torch.rsqrt(var + eps)
-    return (xf.reshape(b, s, d) * scale + bias).to(x.dtype)
+    xf = pj.pin_grad(((xf - mean) * torch.rsqrt(var + eps)).reshape(
+        b, s, h * n))
+    return (xf * scale + bias).to(x.dtype)
+
+
+def _shift(x: torch.Tensor, x_prev: torch.Tensor):
+    """(x, the previous token's x): ``x_prev`` (B, D) before x's first
+    token.  On a mesh both with D over ``model``, the plan's split of the
+    states, so that the state read and the one returned (``x[:, -1]``)
+    keep it (x whole on each rank's rows is cut, not gathered).  The
+    mixing vectors that then meet x are gathered whole (``pjit_utils.
+    whole``: D numbers), so that DTensor lays the product out as x and
+    not x as the vector (a layout whose backward the card's torch
+    cannot redistribute; PERF.md §6)."""
+    x = constrain(x, BATCH, None, "model")
+    x_prev = constrain(x_prev, BATCH, "model")
+    if x.shape[1] == 1:
+        return x, x_prev[:, None]
+    return x, torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
 
 
 def _ddlerp(params: Params, x: torch.Tensor, x_prev: torch.Tensor):
     """Data-dependent token-shift mix for each of r/k/v/w/g."""
     dt = x.dtype
     diff = x_prev - x
-    mix_base = params["mix_base"].to(dt)
+    mix_base = pj.whole(params["mix_base"].to(dt))
     base = x + diff * mix_base[0]                   # coarse mixed input
     rank = params["mix_lora_a"].shape[1] // len(_MIX_NAMES)
-    lora_in = torch.tanh(base @ params["mix_lora_a"].to(dt))
+    lora_in = torch.tanh(L.matmul(base, params["mix_lora_a"].to(dt)))
+    # rows whole before the (mixes, rank) view, which a split of the last
+    # dim need not fall on
+    lora_in = constrain(lora_in, BATCH, None, None)
     lora_in = lora_in.reshape(*lora_in.shape[:-1], len(_MIX_NAMES), rank)
-    lora = torch.einsum("...mr,mrd->...md", lora_in,
-                        params["mix_lora_b"].to(dt))
+    lora = _mix_lora(lora_in, params["mix_lora_b"].to(dt))
     return tuple(x + diff * (mix_base[i] + lora[..., i, :])
                  for i in range(len(_MIX_NAMES)))
 
 
+def _mix_lora(lora_in: torch.Tensor, mix_b: torch.Tensor) -> torch.Tensor:
+    """The five mixes' LoRA products, (..., 5, rank) x (5, rank, D).  On a
+    mesh on each rank's rows against the whole stack (gathered: 5 x rank
+    x D, a few MB): the rank dim they contract, which the plan splits
+    over ``data`` in training, is then summed at once as on one device."""
+    def mix(a, b):
+        return torch.einsum("...mr,mrd->...md", a, b)
+
+    if not pj.on_mesh(lora_in):
+        return mix(lora_in, mix_b)
+    return pj.local(mix, lora_in.placements, lora_in, pj.whole(mix_b))
+
+
 def _decay(params: Params, xw: torch.Tensor) -> torch.Tensor:
     """Per-channel decay in (0, 1), data-dependent (f32 for stability)."""
-    lora = torch.tanh(xw.float() @ params["decay_lora_a"].float()) \
-        @ params["decay_lora_b"].float()
-    return torch.exp(-torch.exp(params["decay_base"] + lora))
+    lora = L.matmul(torch.tanh(L.matmul(xw.float(),
+                                        params["decay_lora_a"].float())),
+                    params["decay_lora_b"].float())
+    return torch.exp(-torch.exp(pj.whole(params["decay_base"]) + lora))
+
+
+def _heads(t: torch.Tensor, h: int, n: int) -> torch.Tensor:
+    """(B, S, H * N) -> (B, S, H, N), on a mesh the rows whole before the
+    view (DTensor may split H * N where H does not divide) and the heads
+    then over ``model`` (JAX's ``rwkv6.py:130-131``)."""
+    b, s = t.shape[:2]
+    t = constrain(t, BATCH, None, None).reshape(b, s, h, n)
+    return constrain(t, BATCH, None, "model", None)
 
 
 def _wkv_chunked(r, k, v, w, u, state, chunk: int):
@@ -144,40 +199,53 @@ def _wkv_chunked(r, k, v, w, u, state, chunk: int):
     return torch.cat(ys, dim=1), S
 
 
+def _wkv(r, k, v, w, bonus, state, n: int):
+    """``_wkv_chunked`` at WKV_CHUNK, u the bonus (D,) as (H, N).  On a
+    mesh on each rank's batch rows and heads (``pjit_utils.local``): the
+    state pinned as JAX pins it on entry and after each chunk (BATCH,
+    ``model``, None, None), the bonus split as r's heads are; y keeps r's
+    placements."""
+    def scan(r, k, v, w, bonus, state):
+        return _wkv_chunked(r, k, v, w, bonus.reshape(-1, n), state,
+                            WKV_CHUNK)
+
+    if not pj.on_mesh(r):
+        return scan(r, k, v, w, bonus, state)
+    state = constrain(state.float(), BATCH, "model", None, None)
+    return pj.local(scan, (r.placements, state.placements), r, k, v, w,
+                    pj.align(bonus, 0, r, 2), state)
+
+
 def time_mix_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
                    x_prev: torch.Tensor, state: torch.Tensor):
     """x: (B, S, D); x_prev: (B, D) last token of the previous segment;
     state: (B, H, N, N).  Returns (out, new_x_prev, new_state)."""
-    b, s, d = x.shape
     h, n = rwkv_heads(cfg), cfg.rwkv_head_dim
     dt = x.dtype
 
-    shifted = torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
+    x, shifted = _shift(x, x_prev)
     xr, xk, xv, xw, xg = _ddlerp(params, x, shifted)
 
-    r = (xr @ params["w_r"].to(dt)).reshape(b, s, h, n).float()
-    k = (xk @ params["w_k"].to(dt)).reshape(b, s, h, n).float()
-    v = (xv @ params["w_v"].to(dt)).reshape(b, s, h, n).float()
-    g = xg @ params["w_g"].to(dt)
-    w = _decay(params, xw).reshape(b, s, h, n)             # (0,1), f32
-    u = params["bonus"].reshape(h, n)
+    r, k, v = (_heads(L.matmul(xi, params[name].to(dt)), h, n).float()
+               for xi, name in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v")))
+    g = L.matmul(xg, params["w_g"].to(dt))
+    w = _heads(_decay(params, xw), h, n)                   # (0,1), f32
 
-    y, state = _wkv_chunked(r, k, v, w, u, state, WKV_CHUNK)
-    y = y.reshape(b, s, d).to(dt)
-    y = _group_norm(y, params["ln_x_scale"], params["ln_x_bias"], h)
+    y, state = _wkv(r, k, v, w, params["bonus"], state, n)
+    y = _group_norm(y.to(dt), params["ln_x_scale"], params["ln_x_bias"])
     y = y * F.silu(g)
-    return y @ params["w_o"].to(dt), x[:, -1], state.float()
+    return L.matmul(y, params["w_o"].to(dt)), x[:, -1], state.float()
 
 
 def channel_mix_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
                       x_prev: torch.Tensor):
     dt = x.dtype
-    shifted = torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
-    xk = x + (shifted - x) * params["mix_k"].to(dt)
-    xr = x + (shifted - x) * params["mix_r"].to(dt)
-    k = torch.square(torch.relu(xk @ params["w_key"].to(dt)))
-    r = torch.sigmoid(xr @ params["w_receptance"].to(dt))
-    return r * (k @ params["w_value"].to(dt)), x[:, -1]
+    x, shifted = _shift(x, x_prev)
+    xk = x + (shifted - x) * pj.whole(params["mix_k"].to(dt))
+    xr = x + (shifted - x) * pj.whole(params["mix_r"].to(dt))
+    k = torch.square(torch.relu(L.matmul(xk, params["w_key"].to(dt))))
+    r = torch.sigmoid(L.matmul(xr, params["w_receptance"].to(dt)))
+    return r * L.matmul(k, params["w_value"].to(dt)), x[:, -1]
 
 
 def init_rwkv_state(cfg: ArchConfig, batch: int,

@@ -34,14 +34,18 @@ kernels (their plain versions on CPU tensors); the MoE dispatch, the wkv
 and SSD scans are plain torch, as they are plain jnp there.
 
 On a mesh (``load_tree`` of DTensor leaves placed by ``launch.sharding``,
-a DTensor batch, inside ``utils.pjit_utils.activation_sharding``) the
-attention-block families (dense, MoE, vlm, audio; with or without a
-window) run the same methods: the activations pinned where the JAX package
-pins them (``constrain``), the embedding a masked lookup of each rank's
-slice of the vocabulary (summed over audio's codebooks, vlm's image prefix
-joined to it), the attention on each rank's shards
-(``layers._mesh_attention``), MoE's routing on each rank's groups
-(``models.moe``).  rwkv6 and the hybrid raise there (ROADMAP.md item 25).
+a DTensor batch, inside ``utils.pjit_utils.activation_sharding``) every
+family (dense, MoE, vlm, audio, rwkv6, the mamba2/zamba2 hybrid; with or
+without a window) runs the same methods: the activations pinned where the
+JAX package pins them (``constrain``), the embedding a masked lookup of
+each rank's slice of the vocabulary (summed over audio's codebooks, vlm's
+image prefix joined to it), the attention on each rank's shards
+(``layers._mesh_attention``; zamba2's shared block too), MoE's routing on
+each rank's groups (``models.moe``), the wkv and SSD scans on each rank's
+heads (``models.rwkv6``, ``models.mamba2``).  The rwkv and mamba states,
+replaced each step, are returned in the placements they came in (the
+plan's, ``launch.sharding.cache_shardings``); attention caches are
+written in place.
 """
 from __future__ import annotations
 
@@ -89,7 +93,9 @@ def _attn_block_apply(p: Params, x, cfg: ArchConfig, positions, window,
     attn_out, new_cache = L.attention_apply(
         p["attn"], h, cfg, positions, window=window, cache=cache,
         cache_pos=cache_pos)
-    x = x + attn_out
+    # on a mesh the norm's input on each rank's rows, whole: a tensor-
+    # parallel product may leave D split (over ``data`` in training)
+    x = constrain(x + attn_out, BATCH, None, None)
     h = L.apply_norm(p["norm2"], x, cfg.norm)
     if cfg.is_moe:
         ffn_out, aux = MOE.moe_apply(p["moe"], h, cfg,
@@ -111,16 +117,20 @@ def _rwkv_block_apply(p: Params, x, cfg: ArchConfig, state):
     if not keep_state:
         state = R6.init_rwkv_state(cfg, x.shape[0], dtype=x.dtype,
                                    device=x.device)
+        if pj.on_mesh(x):
+            state = {k: pj.replicate(v, x.device_mesh)
+                     for k, v in state.items()}
     h = L.apply_norm(p["norm1"], x, cfg.norm)
     tm_out, xp_tm, s_new = R6.time_mix_apply(
         p["time_mix"], h, cfg, state["x_prev_tm"].to(x.dtype), state["S"])
-    x = x + tm_out
+    x = constrain(x + tm_out, BATCH, None, None)     # as in _attn_block
     h = L.apply_norm(p["norm2"], x, cfg.norm)
     cm_out, xp_cm = R6.channel_mix_apply(p["channel_mix"], h, cfg,
                                          state["x_prev_cm"].to(x.dtype))
-    new_state = ({"x_prev_tm": xp_tm, "x_prev_cm": xp_cm, "S": s_new}
-                 if keep_state else None)
-    return x + cm_out, new_state
+    new_state = ({k: pj.like(v, state[k]) for k, v in (
+        ("x_prev_tm", xp_tm), ("x_prev_cm", xp_cm), ("S", s_new))}
+        if keep_state else None)
+    return constrain(x + cm_out, BATCH, None, None), new_state
 
 
 def _mamba_block_init(gen: torch.Generator, cfg: ArchConfig) -> Params:
@@ -131,7 +141,9 @@ def _mamba_block_init(gen: torch.Generator, cfg: ArchConfig) -> Params:
 def _mamba_block_apply(p: Params, x, cfg: ArchConfig, state):
     h = L.apply_norm(p["norm"], x, cfg.norm)
     out, new_state = M2.mamba2_apply(p["mamba"], h, cfg, state)
-    return x + out, new_state
+    if new_state is not None:
+        new_state = {k: pj.like(v, state[k]) for k, v in new_state.items()}
+    return constrain(x + out, BATCH, None, None), new_state
 
 
 BLOCK_INIT = {"attention": _attn_block_init, "rwkv6": _rwkv_block_init,
@@ -194,13 +206,6 @@ def _cast(tree, dt: torch.dtype, name: str = ""):
     if tree.dim() >= 2 and name not in _F32_LEAVES:
         return tree.detach().to(dt)
     return tree
-
-
-def mesh_ready(cfg: ArchConfig) -> bool:
-    """Whether the port runs ``cfg`` on a mesh: the attention-block
-    families (dense, MoE, vlm, audio), with or without a window (rwkv6 and
-    the hybrid are ROADMAP.md item 25)."""
-    return cfg.block_type == "attention"
 
 
 def _embed_on_mesh(table, tok, dtype: torch.dtype):
@@ -418,8 +423,9 @@ class Model(nn.Module):
                 blk, x, cfg, caches["mamba"][i] if has_cache else None)
             new_m.append(ns)
             if (i + 1) % period == 0 and si < self.n_periods:
-                inp = torch.cat([x, x0], dim=-1) @ W["shared_proj"][si].to(
-                    x.dtype)
+                inp = constrain(L.matmul(torch.cat([x, x0], dim=-1),
+                                         W["shared_proj"][si].to(x.dtype)),
+                                BATCH, None, None)    # a block's input
                 out, nsc, _ = _attn_block_apply(
                     W["shared"], inp, cfg, positions, None,
                     caches["shared"][si] if has_cache else None, cache_pos)
@@ -433,9 +439,6 @@ class Model(nn.Module):
     def _backbone(self, W: Params, batch, caches, cache_pos,
                   dtype=torch.float32, moe_capacity=None):
         cfg = self.cfg
-        if pj.on_mesh(W["embed"]) and not mesh_ready(cfg):
-            raise NotImplementedError(f"{cfg.name} on a mesh "
-                                      f"({L.MESH_LATER})")
         x, positions = self.embed(W, batch, dtype)
         if cfg.block_type == "attention":
             x, new_caches, aux = self._run_attn_stack(

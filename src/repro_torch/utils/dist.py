@@ -35,6 +35,16 @@ class Collective(NamedTuple):
     dtype: Optional[torch.dtype]
 
 
+class DTensorCollective(NamedTuple):
+    """One of DTensor's collectives: its name, its input's shape and dtype,
+    and the address of its input's storage (a tensor sent as it is, or a
+    view of it, shows its own)."""
+    name: str
+    shape: Tuple[int, ...]
+    dtype: Optional[torch.dtype]
+    storage: Optional[int]
+
+
 @contextlib.contextmanager
 def counted_collectives() -> Iterator[List[Collective]]:
     """Every outermost ``torch.distributed`` collective called inside, in
@@ -77,23 +87,27 @@ def _is_collective(func) -> bool:
 
 
 @contextlib.contextmanager
-def dtensor_collectives() -> Iterator[Tuple[object, List[Collective]]]:
+def dtensor_collectives() -> Iterator[Tuple[object,
+                                            List[DTensorCollective]]]:
     """DTensor's collectives inside (they bypass ``counted_collectives``'
     wrappers): ``torch.distributed.tensor.debug.CommDebugMode``, whose
     ``get_comm_counts`` counts them by kind, and the list of each call's
-    name and input shape and dtype, in call order."""
+    name, input shape and dtype and the address of the input's storage,
+    in call order."""
     from torch.distributed.tensor.debug import CommDebugMode
-    calls: List[Collective] = []
+    calls: List[DTensorCollective] = []
 
     class Mode(CommDebugMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = super().__torch_dispatch__(func, types, args, kwargs)
             if out is not NotImplemented and _is_collective(func):
                 x = args[0] if args else None
-                calls.append(Collective(
+                calls.append(DTensorCollective(
                     func._overloadpacket.__name__,
                     tuple(getattr(x, "shape", ())),
-                    getattr(x, "dtype", None)))
+                    getattr(x, "dtype", None),
+                    x.untyped_storage().data_ptr()
+                    if torch.is_tensor(x) else None))
             return out
 
     with Mode() as mode:

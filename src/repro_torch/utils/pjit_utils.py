@@ -14,8 +14,9 @@ never enters the context and holds no DTensor, so constraints return their
 argument itself there.
 
 ``local`` runs a function on each rank's local shards (``local_map``): the
-model's attention core, its RoPE, its masked embedding lookup and its
-cache writes, which DTensor's own operators do not cover.
+model's attention core, its RoPE, its masked embedding lookup, its cache
+writes, MoE's routing, the wkv and SSD scans and the causal conv, which
+DTensor's own operators do not cover.
 """
 from __future__ import annotations
 
@@ -115,6 +116,15 @@ def on_mesh(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def spec_placements(shape: Sequence[int], *spec: AxisName) -> tuple:
+    """The placements ``constrain`` gives a tensor of ``shape`` under
+    ``spec`` in the current context (which must be entered)."""
+    mesh, batch = _CTX.get()[:2]
+    full = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return placements(resolve_spec(tuple(shape), full, mesh.axis_names,
+                                   mesh.axis_sizes, batch), mesh)
+
+
 def constrain(x: torch.Tensor, *spec: AxisName) -> torch.Tensor:
     """``x`` redistributed to ``spec`` as ``resolve_spec`` resolves it on
     the context's mesh; ``x`` itself outside a context or for a plain
@@ -122,12 +132,9 @@ def constrain(x: torch.Tensor, *spec: AxisName) -> torch.Tensor:
     ctx = _CTX.get()
     if ctx is None or not on_mesh(x):
         return x
-    mesh, batch, _, device_mesh = ctx
-    full = tuple(spec) + (None,) * (x.dim() - len(spec))
-    resolved = resolve_spec(tuple(x.shape), full, mesh.axis_names,
-                            mesh.axis_sizes, batch)
+    device_mesh = ctx[3]
     dm = device_mesh if device_mesh is not None else x.device_mesh
-    return x.redistribute(dm, placements(resolved, mesh))
+    return x.redistribute(dm, spec_placements(x.shape, *spec))
 
 
 # ---------------------------------------------------------------------------
@@ -200,9 +207,42 @@ def local(fn: Callable, out_placements, *args):
                      device_mesh=mesh)(*args)
 
 
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor replicated on every mesh dim (partial sums reduced); a
+    plain tensor as it is."""
+    if not on_mesh(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def align(v: torch.Tensor, dim: int, ref: torch.Tensor,
+          ref_dim: int) -> torch.Tensor:
+    """The DTensor ``v`` with its dim ``dim`` split over the mesh dims that
+    split ``ref``'s dim ``ref_dim`` and whole on the others: a per-head
+    parameter (or a per-channel one, split at head boundaries) beside the
+    heads of an activation, for ``local``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return v.redistribute(v.device_mesh, tuple(
+        Shard(dim) if isinstance(p, Shard) and p.dim == ref_dim
+        else Replicate() for p in ref.placements))
+
+
+def like(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``new`` in ``old``'s placements where both are DTensors (a state
+    kept where its plan puts it: a slice of what each rank holds, or a
+    no-op), else ``new`` itself."""
+    if on_mesh(new) and on_mesh(old):
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
+
+
 def pin_grad(x: torch.Tensor) -> torch.Tensor:
     """The DTensor ``x`` as it is, with its gradient brought back to ``x``'s
     placements in the backward pass, whatever layout the ops after it
     chose: the reshape that made ``x`` then undoes on the layout it made
-    (a split of H * hd that H does not divide cannot be viewed as heads)."""
+    (a split of H * hd that H does not divide cannot be viewed as heads).
+    A plain tensor as it is."""
+    if not on_mesh(x):
+        return x
     return local(lambda t: t, x.placements, x)

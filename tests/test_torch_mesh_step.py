@@ -37,6 +37,8 @@ from pathlib import Path
 
 import pytest
 
+from repro_torch.configs.archs import ALL_ARCHS
+from repro_torch.configs.shapes import get_shape
 from repro_torch.launch import specs
 from repro_torch.launch.mesh import make_test_mesh
 
@@ -281,26 +283,107 @@ def test_decode_never_gathers_the_cache(runs, arch):
     assert min(r["decode_collectives"]) > 0
 
 
-def test_other_families_refuse_the_mesh():
-    """``build_case``'s step raises for the families a mesh does not run
-    yet (rwkv6 and the hybrid, ROADMAP.md item 25), without running them
-    unsharded; the attention-block families and the window variant get
-    their step (run on a mesh in ``test_torch_mesh_families.py``)."""
-    from repro_torch.models.transformer import mesh_ready
-    mesh = make_test_mesh(2, 2)
-    for arch in ("rwkv6-7b", "zamba2-7b"):
-        for shape in ("train_4k", "decode_32k"):
-            case = specs.build_case(arch, shape, mesh)
-            with pytest.raises(NotImplementedError, match="item 25"):
-                case["fn"](*case["args"])
-    for arch, shape in (("mixtral-8x7b", "train_4k"),
-                        ("smollm-360m", "long_500k"),
-                        ("smollm-360m", "decode_32k")):
-        case = specs.build_case(arch, shape, mesh)
-        assert mesh_ready(case["cfg"]) and callable(case["fn"])
-        assert case["fn"].__name__ != "refuse"
-    assert specs.build_case("smollm-360m", "long_500k",
-                            mesh)["cfg"].sliding_window == 4096
+#: every arch's train and decode step, and the window variant's decode
+STEPS = tuple((arch, shape) for arch in ALL_ARCHS
+              for shape in ("train_4k", "decode_32k")) + (
+    ("smollm-360m", "long_500k"),)
+
+_STEPS = r'''
+import dataclasses, json, sys
+from datetime import timedelta
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", store=dist.FileStore(store, 4), rank=rank,
+                        world_size=4, timeout=timedelta(seconds=60))
+from repro_torch.launch import mesh as M, sharding as sh, specs
+from repro_torch.models.transformer import Model
+from repro_torch.train.loop import TrainConfig, init_train_state
+from repro_torch.utils.pjit_utils import activation_sharding
+
+mesh = M.make_test_mesh(2, 2)
+dm = M.device_mesh(mesh, device="cpu")
+B, S, MAX_LEN = 4, 8, 16
+
+
+def run(arch, shape):
+    full, variant = specs.resolve_arch_for_shape(arch, shape)
+    cfg = dataclasses.replace(full.reduced(), scan_layers=True)
+    case = specs.build_case_from_cfg(cfg, shape, mesh, torch.float32,
+                                     variant=variant)
+    model = Model(cfg, device="cpu", seed=0)
+    rng = np.random.default_rng(0)
+    frames = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+
+    def place(tree, specs_):
+        return sh.distribute(tree, specs_, mesh, dm)
+
+    with activation_sharding(mesh, case["batch_axes"], dm):
+        if case["kind"] == "train":
+            tc = TrainConfig()
+            _, opt = init_train_state(model, tc)
+            p_sh, o_sh = case["in_specs"][:2]
+            model.load_tree(place(model.tree(), p_sh))
+            batch = {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (B, S) + frames)).int()}
+            if cfg.family == "vlm":
+                batch["image_embeds"] = torch.randn(
+                    B, cfg.frontend_tokens, cfg.d_model)
+            batch = place(batch, sh.batch_shardings(batch, mesh,
+                                                    case["batch_axes"]))
+            _, _, metrics = case["fn"](model.tree(), place(
+                opt, o_sh), batch)
+            return dict(kind="train", window=cfg.sliding_window,
+                        finite=bool(torch.isfinite(metrics["ce"])))
+        model.load_tree(place(model.tree(), case["in_specs"][0]))
+        cache = model.init_cache(B, MAX_LEN, dtype=torch.float32)
+        cache = place(cache, sh.cache_shardings(cache, cfg, mesh))
+        tok = {"t": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B,) + frames)).int()}
+        tok = place(tok, sh.batch_shardings(tok, mesh,
+                                            case["batch_axes"]))["t"]
+        logits, cache = case["fn"](model.weights(torch.float32), tok, cache)
+        logits = logits.full_tensor()
+        return dict(kind=case["kind"], window=cfg.sliding_window,
+                    finite=bool(torch.isfinite(logits).all()),
+                    shape=list(logits.shape),
+                    want=[B, *frames, cfg.vocab_size],
+                    pos=cache["pos"].full_tensor().tolist())
+
+
+results = {}
+for step in sys.argv[4].split(","):
+    results[step] = run(*step.split("/"))
+if rank == 0:
+    with open(out, "w") as f:
+        json.dump(results, f)
+dist.destroy_process_group()
+'''
+
+
+@pytest.fixture(scope="module")
+def steps_run(tmp_path_factory):
+    return _spawn(tmp_path_factory.mktemp("steps"),
+                  [f"{a}/{s}" for a, s in STEPS], _STEPS)
+
+
+@pytest.mark.parametrize("arch,shape", STEPS)
+def test_build_case_fn_runs_for_every_family(steps_run, arch, shape):
+    """``build_case``'s step for every family and the window variant: the
+    full-size case gives a step of its shape's kind, and the same case at
+    reduced widths runs it on DTensors on four gloo ranks (B 4): finite
+    ce, or logits of (B, [codebooks,] V) with each row's position
+    advanced."""
+    case = specs.build_case(arch, shape, make_test_mesh(2, 2))
+    assert callable(case["fn"]) and case["kind"] == get_shape(shape).kind
+    r = steps_run[f"{arch}/{shape}"]
+    assert r["kind"] == case["kind"] and r["finite"]
+    if r["kind"] == "decode":
+        assert r["shape"] == r["want"] and r["pos"] == [1] * 4
+    if shape == "long_500k":
+        assert case["cfg"].sliding_window == 4096 and r["window"] == 64
 
 
 def test_distribute_raises_on_a_leaf_without_a_spec():

@@ -7,9 +7,10 @@ return the spec it is given, and runs JAX's ``constrain`` under its
 ``activation_sharding`` with a stand-in mesh (``axis_names`` and
 ``devices.shape``, as ``test_torch_launch.py`` stands in for the
 production meshes), so no 512-device backend is made.  The grid: every
-spec the call sites pass (``models/layers.py``, ``models/moe.py`` and
-``models/transformer.py`` of both packages, and the port's own pins of the
-heads, positions and tokens), at each arch's widths and each shape of
+spec the call sites pass (``models/layers.py``, ``models/moe.py``,
+``models/rwkv6.py``, ``models/mamba2.py`` and ``models/transformer.py`` of
+both packages, and the port's own pins of the heads, positions, tokens,
+token shift and in_proj output), at each arch's widths and each shape of
 ``configs/shapes.py``, on pod16x16, pod2x16x16 and 2 x 2, with the batch
 axes ``pick_batch_axes`` picks for the shape.  Specs are compared exactly.
 """
@@ -35,16 +36,54 @@ MESHES = {"pod16x16": (("data", "model"), (16, 16)),
           "2x2": (("data", "model"), (2, 2))}
 
 
+def _recurrent_sites(cfg, b, s):
+    """rwkv6's wkv sites (``models/rwkv6.py:130-131``, ``:139``,
+    ``:158-161`` of the JAX package, at the chunk its scan takes) and the
+    port's token shift; the hybrid's SSD sites (``models/mamba2.py:100-152``)
+    and the port's pins of the in_proj output and of B and C repeated to
+    the heads.  The block outputs (``transformer.py:104``, ``:121``) are
+    the common (B, None, None) site."""
+    B = pj.BATCH
+    if cfg.block_type == "rwkv6":
+        h, n = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        q = 64 if s % 64 == 0 else (1 if s < 64 else s)
+        return [((b, s, h, n), (B, None, "model", None)),    # r, k, v, log w
+                ((b, h, n, n), (B, "model", None, None)),    # the state
+                ((b, q, h, n), (B, None, "model", None)),    # a chunk's y
+                ((b, s, cfg.d_model), (B, None, "model")),   # shift (port)
+                ((b, cfg.d_model), (B, "model"))]            # x_prev (port)
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    q = min(cfg.ssm_chunk, s)
+    if s % q:
+        q = 1 if s == 1 else s
+    c = s // q
+    proj = 2 * h * p + 2 * cfg.ssm_groups * n + h
+    return [((b, s, h, p), (B, None, "model", None)),        # x
+            ((b, s, h), (B, None, "model")),                 # dt
+            ((b, c, q, h, n), (B, None, None, "model", None)),   # B, C
+            ((b, c, h, q, q), (B, None, "model", None, None)),   # m
+            ((b, c, h, p, n), (B, None, "model", None, None)),   # s_chunk
+            ((b, c, q, h, p), (B, None, None, "model", None)),   # y
+            ((b, h, p, n), (B, "model", None, None)),        # the state
+            ((b, s, h, n), (B, None, "model", None)),        # B, C (port)
+            ((b, s, proj), (B, None, None))]                 # in_proj (port)
+
+
 def _call_sites(cfg, shape, groups=1):
     """(shape, spec with the port's BATCH) of every constraint the step
-    passes at ``cfg``'s widths and ``shape``'s size: the dense family's,
-    MoE's (``models/moe.py:90``, ``:100``, ``:114``, ``:117``, ``:127`` of
-    the JAX package, at the groups its rule picks from ``groups`` batch
-    shards) and audio's logits (``transformer.py:425``)."""
+    passes at ``cfg``'s widths and ``shape``'s size: the embedding, block
+    output and logits of every family; the attention's (the dense
+    family's, zamba2's shared block), MoE's (``models/moe.py:90``,
+    ``:100``, ``:114``, ``:117``, ``:127`` of the JAX package, at the
+    groups its rule picks from ``groups`` batch shards), audio's logits
+    (``transformer.py:425``) and the recurrent scans'
+    (``_recurrent_sites``)."""
     b, s = shape.global_batch, shape.seq_len
     h, hkv, d, v = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.vocab_size
     B = pj.BATCH
     extra = []
+    if cfg.block_type != "attention":
+        extra = _recurrent_sites(cfg, b, s)
     if cfg.is_moe:
         e, t = cfg.n_experts, b * s
         g = 1 if t % groups or t // groups < e else groups
@@ -55,14 +94,18 @@ def _call_sites(cfg, shape, groups=1):
                  ((g, e, c, cfg.d_ff), (B, None, None, "model"))]  # hidden
     if cfg.family == "audio":
         extra.append(((b, s, cfg.n_codebooks, v), (B, None, None, "model")))
-    return extra + [
+    common = [
         ((b, s, cfg.d_model), (B, None, None)),          # embed, block out
         ((b, s, v), (B, None, "model")),                 # logits
         ((b, v), (B, "model")),                          # last-token logits
-        ((b, s, h, d), (B, None, "model", None)),        # q heads (port)
-        ((b, s, hkv, d), (B, None, "model", None)),      # kv heads (port)
         ((b, s), (B, None)),                             # positions, tokens
         ((b,), (B,)),                                    # start positions
+    ]
+    if cfg.block_type == "rwkv6":
+        return extra + common
+    return extra + common + [
+        ((b, s, h, d), (B, None, "model", None)),        # q heads (port)
+        ((b, s, hkv, d), (B, None, "model", None)),      # kv heads (port)
         ((b, s, h * d), (B, None, None)),                # projections (port)
         ((b, s, h, d), (B, "model", None, None)),        # k, v repeated
         ((b, h, 1, s), (B, None, None, "model")),        # scores, probs
@@ -109,7 +152,8 @@ def test_resolve_spec_matches_jax_constrain(arch, mesh_name):
                 assert (pj.batch_shard_count(),
                         pj.current_batch_axes()) == ctx
             n += 1
-    assert n == len(SHAPES) * (12 + 3 * cfg.is_moe
+    per_shape = {"attention": 12, "rwkv6": 5 + 5, "mamba2": 12 + 9}
+    assert n == len(SHAPES) * (per_shape[cfg.block_type] + 3 * cfg.is_moe
                                + (cfg.family == "audio"))
 
 
