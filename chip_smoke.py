@@ -115,7 +115,19 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    archs x 4 shapes x both production meshes against the card's memory,
    per-device GiB by part, and every case that fits the free memory
    allocated as rank 0's shards, the allocator's requested bytes equal
-   to the plan's argument bytes exactly;
+   to the plan's argument bytes exactly; then the dry-run's compiler half
+   (``phase_dryrun_costs``, in a process of its own, ``chip_smoke.py
+   --dryrun-costs``): ``dryrun --costs`` for smollm-360m train_4k,
+   mixtral-8x7b decode_32k, rwkv6-7b train_4k and zamba2-7b prefill_32k on
+   pod16x16, each step as rank 0 of a fake 256-rank process group: FLOPs,
+   bytes and collective bytes a device from the CPU probe on FakeTensors
+   and the temp bytes from the card (the kernel route on rank 0's real
+   shards), each differenced to full depth, the card's DTensor
+   collectives at each depth equal to the CPU probe's by kind and bytes,
+   smollm-360m's differenced temp bytes within 10% of a 32-layer run; the
+   MOCHA round (``launch.mocha_dryrun``) at m 512, d 561 with the f32 and
+   the bf16 wire, one all-gather of m x d; within 90 s; no process group
+   left in the script's process;
 8. time the SDCA kernel (CUDA events over many launches) beside its bound
    and its chain floor (a model printed on the timing line: chain steps x
    one dependent step counted from the kernel's instructions at assumed
@@ -3355,6 +3367,169 @@ def phase_dryrun():
                                        for r in records.values()))
 
 
+DRYRUN_COSTS_BUDGET_S = 90.0
+#: one case a group of families, on pod16x16
+DRYRUN_COST_CASES = (("smollm-360m", "train_4k"), ("mixtral-8x7b",
+                                                   "decode_32k"),
+                     ("rwkv6-7b", "train_4k"), ("zamba2-7b", "prefill_32k"))
+#: smollm-360m train_4k's temp bytes differenced from two depths against a
+#: full-depth run, relative: the step's live set grows by a layer's saved
+#: activations a layer, and what is not linear in depth (the optimizer's
+#: and the gradients' per-layer buffers freed and reused in another
+#: order) is a few percent of it
+DRYRUN_TEMP_RTOL = 0.10
+#: the MOCHA round's one all-gather at the default sizes: m x d, f32 / bf16
+MOCHA_GATHER_BYTES = {False: 512 * 561 * 4, True: 512 * 561 * 2}
+
+
+def _same_collectives(label, fake, card):
+    """The card's collectives (kernel route) against the fake probe's:
+    equal by kind, in count and bytes."""
+    keys = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+            "collective-permute", "count")
+    diff = {k: (fake[k], card[k]) for k in keys if fake[k] != card[k]}
+    if diff:
+        raise AssertionError(f"{label}: card against fake probe {diff}")
+
+
+def dryrun_costs_run(out):
+    """``phase_dryrun_costs``' body, in a process of its own (every probe
+    makes a fake process group; none may live in the script's process):
+    for ``DRYRUN_COST_CASES`` side by side, the CPU probes of
+    ``roofline.measure_full_depth`` (two processes a case) and, beside
+    them, one card probe (``probe.card_memory``) of every case at
+    ``dryrun.card_depths`` and of smollm-360m train_4k at 32 layers; the
+    MOCHA round at its default sizes in f32 and bf16; the checks, then
+    the result as JSON in ``out``."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.launch import dryrun, mocha_dryrun, probe, roofline
+    from repro_torch.launch.specs import resolve_arch_for_shape
+    gib = 2 ** 30
+    t0 = time.perf_counter()
+    cfgs = [resolve_arch_for_shape(a, s)[0] for a, s in DRYRUN_COST_CASES]
+    card_cases = [[a, s, dryrun.card_depths(cfg)]
+                  for (a, s), cfg in zip(DRYRUN_COST_CASES, cfgs)]
+    big = [c for c in card_cases if c[0] == "rwkv6-7b"]
+    big.append(["smollm-360m", "train_4k", [32]])
+    rest = [c for c in card_cases if c[0] != "rwkv6-7b"]
+    with ThreadPoolExecutor(len(DRYRUN_COST_CASES) + 2) as pool:
+        # beside the CPU's probes, two card processes: rwkv6 (50 GiB at 3
+        # layers), then smollm's 32 layers (10.4 GiB), from the start,
+        # beside the MOCHA rounds (4.7 GB); the other cases (at most 8.4
+        # GiB) once those are done.  With the script's own ~6 GB that
+        # fits the card's 79 GiB, where all at once did not
+        big = pool.submit(probe.spawn, "card_memory", cases=big)
+        costs = [pool.submit(roofline.measure_full_depth, a, s)
+                 for a, s in DRYRUN_COST_CASES]
+        moch = {wire: mocha_dryrun.run(bf16_wire=wire)
+                for wire in (False, True)}
+        torch.cuda.empty_cache()
+        rest = pool.submit(probe.spawn, "card_memory", cases=rest)
+        costs = [f.result() for f in costs]
+        big, rest = big.result()["cases"], rest.result()["cases"]
+        by_case = {(c["arch"], c["shape"]): c for c in big[:-1] + rest}
+        card = [by_case[c] for c in DRYRUN_COST_CASES] + big[-1:]
+    out_rec = {"cases": {}, "mocha": {}}
+    launches = {"flash_attention": 0, "decode_attention": 0}
+    for c in card:
+        for d in c["depths"].values():
+            if d["status"] != "ok":
+                raise AssertionError(
+                    f"card probe {c['arch']} {c['shape']}: " + "; ".join(
+                        f"L{n} {v.get('error', 'ok')}"
+                        for n, v in c["depths"].items()))
+            for k in launches:
+                launches[k] += d["launches"][k]
+    for (arch, shape), cfg, cost, got in zip(DRYRUN_COST_CASES, cfgs, costs,
+                                             card):
+        tag = f"{arch} {shape}"
+        for depth, fake in cost["probes"].items():
+            _same_collectives(f"{tag} L{depth}", fake["collectives"],
+                              got["depths"][depth]["collectives"])
+        temp = dryrun.temp_from_depths(cfg, got["depths"])["temp_bytes"]
+        coll = cost["collectives"]
+        model = roofline.model_flops(cfg, shape) / roofline.CHIPS
+        print(f"dryrun costs {tag} pod16x16: flops/device "
+              f"{cost['flops']:.4e} bytes/device {cost['bytes']:.4e} "
+              f"collectives {coll['total']:.4e} B ({coll['count']:.0f}: "
+              + ", ".join(f"{k} {coll[k]:.3e}" for k in (
+                  "all-gather", "reduce-scatter", "all-reduce", "all-to-all")
+                  if coll[k]) + f") temp {temp / gib:.3f} GiB useful "
+              f"{model / cost['flops']:.3f}; collectives at each depth equal "
+              f"to the fake probe's", flush=True)
+        out_rec["cases"][tag] = {
+            "flops_device": cost["flops"], "bytes_device": cost["bytes"],
+            "collectives": coll, "temp_bytes": temp,
+            "model_flops_per_device": model,
+            "card_depths": {d: {k: v[k] for k in ("temp_bytes", "step_s",
+                                                  "launches")}
+                            for d, v in got["depths"].items()}}
+    smollm = out_rec["cases"]["smollm-360m train_4k"]["temp_bytes"]
+    full = card[-1]["depths"]["32"]["temp_bytes"]
+    share = abs(smollm - full) / full
+    print(f"dryrun costs smollm-360m train_4k temp: differenced "
+          f"{smollm / gib:.4f} GiB, 32 layers run {full / gib:.4f} GiB "
+          f"({share:.2%}, limit {DRYRUN_TEMP_RTOL:.0%})", flush=True)
+    if share > DRYRUN_TEMP_RTOL:
+        raise AssertionError(f"differenced temp bytes {share:.2%} from the "
+                             f"full-depth run")
+    for wire, rec in moch.items():
+        coll, want = rec["collectives"], MOCHA_GATHER_BYTES[wire]
+        if coll["count"] != 1 or coll["all-gather"] != want:
+            raise AssertionError(f"MOCHA round (bf16 wire {wire}): "
+                                 f"{coll}, want one all-gather of {want} B")
+        out_rec["mocha"]["bf16" if wire else "f32"] = {
+            k: rec[k] for k in ("memory", "cost", "collectives", "probe_s")}
+    wall = time.perf_counter() - t0
+    out_rec.update(launches=launches, wall_s=wall,
+                   smollm_full_temp_bytes=full, smollm_temp_share=share)
+    Path(out).write_text(json.dumps(out_rec))
+    return 0
+
+
+def phase_dryrun_costs():
+    """The dry-run's compiler half (what ``repro_torch.launch.dryrun
+    --costs`` records): in a process of its own (``chip_smoke.py
+    --dryrun-costs``), for
+    smollm-360m train_4k, mixtral-8x7b decode_32k, rwkv6-7b train_4k and
+    zamba2-7b prefill_32k on pod16x16, each a step as rank 0 of a fake
+    256-rank group: FLOPs, bytes and collective bytes a device (the CPU
+    probes on FakeTensors) and the temp bytes on the card (the kernel
+    route on rank 0's real shards), both at two depths differenced to full
+    depth; the card's collectives at each depth equal to the fake probe's
+    by kind and bytes; smollm-360m's differenced temp bytes within
+    ``DRYRUN_TEMP_RTOL`` of a full-depth run; the MOCHA round at its
+    default sizes (m 512, d 561), f32 and bf16 wire, one all-gather of
+    ``MOCHA_GATHER_BYTES``; within ``DRYRUN_COSTS_BUDGET_S``; and no
+    process group left in this process."""
+    import tempfile
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()          # the card's memory for the probes
+    with tempfile.TemporaryDirectory() as tdir:
+        out = Path(tdir) / "costs.json"
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--dryrun-costs",
+             str(out)], capture_output=True, text=True,
+            timeout=4 * DRYRUN_COSTS_BUDGET_S)
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"dry-run costs exited {proc.returncode}: "
+                                 f"{(proc.stdout + proc.stderr)[-4000:]}")
+        res = json.loads(out.read_text())
+    wall = time.perf_counter() - t0
+    if torch.distributed.is_initialized():
+        raise AssertionError("a process group is left in the script's "
+                             "process")
+    print(f"dryrun costs: phase {wall:.2f} s (budget "
+          f"{DRYRUN_COSTS_BUDGET_S:.0f} s); launches {res['launches']}",
+          flush=True)
+    if wall > DRYRUN_COSTS_BUDGET_S:
+        raise AssertionError(f"dry-run costs phase {wall:.1f} s over its "
+                             f"budget")
+    res["phase_s"] = wall
+    return res
+
+
 # ---------------------------------------------------------------------------
 # the sharded LM step on a 2 x 2 mesh of gloo ranks sharing the card
 # ---------------------------------------------------------------------------
@@ -3991,6 +4166,7 @@ def main() -> int:
     train = phase_train()
     families = phase_families()
     dry = phase_dryrun()
+    dry_costs = phase_dryrun_costs()
     shapes = phase_timing(main_runs, errs)
     phase_profile(main_runs)
     attn = phase_attention_timing(attn_errs)
@@ -4019,7 +4195,8 @@ def main() -> int:
                    "mesh_families":
                        mesh_families["launches"]["flash_attention"],
                    "mesh_recurrent":
-                       mesh_recurrent["launches"]["flash_attention"]}
+                       mesh_recurrent["launches"]["flash_attention"],
+                   "dryrun_costs": dry_costs["launches"]["flash_attention"]}
     decode_paths = {"lm_generate": sum(lm[dt]["counts"]["decode_attention"]
                                        for dt in ("float32", "bfloat16")),
                     "families": families["decode_attention"],
@@ -4027,7 +4204,9 @@ def main() -> int:
                     "mesh_families":
                         mesh_families["launches"]["decode_attention"],
                     "mesh_recurrent":
-                        mesh_recurrent["launches"]["decode_attention"]}
+                        mesh_recurrent["launches"]["decode_attention"],
+                    "dryrun_costs":
+                        dry_costs["launches"]["decode_attention"]}
     kernels = [dict(
         name="sdca_local_solve", route="cuda",
         source="src/repro_torch/kernels/sdca/csrc/sdca.cu",
@@ -4070,6 +4249,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"families": families["runs"]}))
     print(json.dumps({"dryrun": dry}))
+    print(json.dumps({"dryrun_costs": dry_costs}))
     print(json.dumps({"mesh_step": mesh_step}))
     print(json.dumps({"mesh_families": mesh_families}))
     print(json.dumps({"mesh_recurrent": mesh_recurrent}))
@@ -4086,4 +4266,6 @@ if __name__ == "__main__":
         sys.exit(sharded_rank(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--dryrun-costs"]:
+        sys.exit(dryrun_costs_run(sys.argv[2]))
     sys.exit(main())

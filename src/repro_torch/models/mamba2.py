@@ -194,13 +194,15 @@ def mamba2_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     xbc = zxbcdt[..., d_inner:-h]
     dt_raw = zxbcdt[..., -h:]
 
+    # the conv state is a copy of the last kw - 1 rows: a view would keep
+    # the whole (B, S, conv_dim) input alive in the cache a prefill returns
     if state is not None:
         xbc_in = torch.cat([state["conv"].to(dt_), xbc], dim=1)
         conv_out = _conv(xbc_in, params["conv_w"], params["conv_b"])[:, -s:]
-        new_conv = xbc_in[:, -(cfg.conv_width - 1):]
+        new_conv = xbc_in[:, -(cfg.conv_width - 1):].clone()
     else:
         conv_out = _conv(xbc, params["conv_w"], params["conv_b"])
-        new_conv = xbc[:, -(cfg.conv_width - 1):]
+        new_conv = xbc[:, -(cfg.conv_width - 1):].clone()
 
     x_ssd = constrain(conv_out[..., :d_inner].reshape(b, s, h, p).float(),
                       BATCH, None, "model", None)

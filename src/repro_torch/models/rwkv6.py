@@ -234,7 +234,9 @@ def time_mix_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     y, state = _wkv(r, k, v, w, params["bonus"], state, n)
     y = _group_norm(y.to(dt), params["ln_x_scale"], params["ln_x_bias"])
     y = y * F.silu(g)
-    return L.matmul(y, params["w_o"].to(dt)), x[:, -1], state.float()
+    # the new x_prev is a copy: a view of x would keep the whole (B, S, D)
+    # input alive in the state a prefill returns
+    return L.matmul(y, params["w_o"].to(dt)), x[:, -1].clone(), state.float()
 
 
 def channel_mix_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -245,7 +247,7 @@ def channel_mix_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     xr = x + (shifted - x) * pj.whole(params["mix_r"].to(dt))
     k = torch.square(torch.relu(L.matmul(xk, params["w_key"].to(dt))))
     r = torch.sigmoid(L.matmul(xr, params["w_receptance"].to(dt)))
-    return r * L.matmul(k, params["w_value"].to(dt)), x[:, -1]
+    return r * L.matmul(k, params["w_value"].to(dt)), x[:, -1].clone()
 
 
 def init_rwkv_state(cfg: ArchConfig, batch: int,

@@ -87,6 +87,16 @@ def _attn_block_init(gen: torch.Generator, cfg: ArchConfig) -> Params:
     return p
 
 
+def _split_count(x, dim: int) -> int:
+    """How many shards a DTensor's ``dim`` is cut into over its mesh."""
+    dim %= x.ndim
+    n = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            n *= x.device_mesh.size(i)
+    return n
+
+
 def _attn_block_apply(p: Params, x, cfg: ArchConfig, positions, window,
                       cache, cache_pos, moe_capacity=None):
     h = L.apply_norm(p["norm1"], x, cfg.norm)
@@ -455,6 +465,12 @@ class Model(nn.Module):
         dt = h.dtype
         if cfg.family == "audio":
             out = L.matmul(h, W["lm_head"].to(dt))
+            if pj.on_mesh(out) and cfg.n_codebooks % _split_count(out, -1):
+                # the (C * V) dim split over more ranks than C divides
+                # into: JAX's reshape keeps each rank's slice of one
+                # codebook, which no DTensor placement can name, so the
+                # dim is brought whole first (the result splits V below)
+                out = constrain(out, BATCH, *([None] * (out.ndim - 1)))
             out = out.reshape(*h.shape[:-1], cfg.n_codebooks,
                               cfg.vocab_size)
         elif cfg.tie_embeddings:

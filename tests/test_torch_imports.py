@@ -37,7 +37,8 @@ for sub in ("configs.smollm_360m", "models.layers", "models.transformer",
             "federated.runtime", "federated.sharding", "utils.dist",
             "configs.shapes", "launch.mesh", "launch.sharding",
             "launch.specs", "launch.roofline", "launch.dryrun",
-            "utils.pjit_utils"):
+            "utils.pjit_utils", "launch.hlo_stats", "launch.probe",
+            "launch.mocha_dryrun"):
     assert "repro_torch." + sub in names, sub
 print(len(names))
 """

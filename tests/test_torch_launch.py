@@ -414,12 +414,23 @@ def test_run_case_record(tmp_path):
     assert mem["donated_bytes"] == mem["cache_bytes"] > 0
     assert rec["device_memory_bytes"] is None
     assert rec["fits_arguments"] is None
-    for key in ("temp_bytes", "flops_hlo", "collectives"):
+    # a plan-only record: the cost probe's fields null, the note says why
+    for key in ("temp_bytes", "flops_device", "bytes_device", "collectives"):
         assert rec[key] is None
-    assert "item 23" in rec["note"] and "22" not in rec["note"]
+    assert "--costs" in rec["note"] and "not measured" in rec["note"]
     assert rec["model_flops"] == roofline.model_flops(
         get_config("zamba2-7b"), "decode_32k")
     assert (tmp_path / "zamba2-7b__decode_32k__pod16x16.json").exists()
+    # with costs on the CPU: FLOPs, bytes and collectives a device filled
+    # by the probe, temp bytes null with their reason (the card's only)
+    costs = dryrun.run_case("mixtral-8x7b", "decode_32k", False,
+                            str(tmp_path), device="cpu", costs=True)
+    assert costs["status"] == "ok" and "note" not in costs
+    assert costs["flops_device"] > 0 and costs["bytes_device"] > 0
+    assert costs["collectives"]["count"] > 0
+    assert costs["collectives"]["total"] > 0
+    assert costs["temp_bytes"] is None
+    assert "card" in costs["temp_bytes_reason"]
     train = dryrun.run_case("mixtral-8x7b", "train_4k", True,
                             str(tmp_path), device="cpu")
     m = train["memory"]
