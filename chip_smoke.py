@@ -96,8 +96,12 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    of SmolLM-360M at B 4 x S 512, five AdamW steps in f32 and in bf16 with
    f32 masters, step 0 of the kernel route against the plain route (its
    every flash call within ``flash_tolerance``; two planted wrong flash
-   routes must fail the same limits), the loss falling, 32 flash launches
-   a step; then the other model families (``phase_families``) at their
+   routes must fail the same limits), the loss falling, 64 flash launches
+   a step (the forward's and ``cfg.remat``'s recompute's); remat
+   (``phase_remat``): rwkv6-7b at full width, 2 layers, B 1 x 4096, bf16,
+   the step's gradients with each block recomputed against the step
+   without, within TRAIN_TOL, both peaks printed; then the other model
+   families (``phase_families``) at their
    published widths, random weights from seed 0, through
    ``Engine.generate`` with 16 new tokens in f32 and bf16: mixtral-8x7b (4
    of 32 layers; B 1, a 4096-token prompt filling its 4096-slot ring, which
@@ -124,7 +128,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    and the temp bytes from the card (the kernel route on rank 0's real
    shards), each differenced to full depth, the card's DTensor
    collectives at each depth equal to the CPU probe's by kind and bytes,
-   smollm-360m's differenced temp bytes within 10% of a 32-layer run; the
+   smollm-360m's differenced temp bytes within 10% of a 32-layer run,
+   rwkv6-7b train_4k's within the card's memory, mixtral-8x7b train_4k's
+   temp bytes from the card alone; the
    MOCHA round (``launch.mocha_dryrun``) at m 512, d 561 with the f32 and
    the bf16 wire, one all-gather of m x d; within 90 s; no process group
    left in the script's process;
@@ -147,20 +153,21 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 11. last (its four extra processes on the card perturb no timing), the
    sharded LM step (``phase_mesh_step``) on a 2 x 2 mesh of four gloo
    ranks sharing the card (spawned ``chip_smoke.py --mesh-rank``):
-   SmolLM-360M at full width (16 of 32 layers), two AdamW steps in bf16
+   SmolLM-360M at full width (8 of 32 layers), two AdamW steps in bf16
    with f32 masters at B 4 x 512 (batch over ('data', 'model')) and two
    in f32 at B 2 x 512, a generate of 8 tokens at B 8 after a 1024-token
-   prompt in f32 and bf16, and granite-3-2b's (heads split over 'model')
-   at B 2 x 256 in bf16, each held against the same run on one device of
+   prompt in f32 and bf16, and granite-3-2b's (20 of 40 layers, heads
+   split over 'model') at B 2 x 256 in bf16, each held against the same run on one device of
    the card (ce, grad_norm, logits, tokens), flash and decode launched on
    every rank, no decode step gathering the sequence-sharded cache,
    DTensor's collectives a step counted;
 12. then the same for the other attention-block families and the
-   window's ring (``phase_mesh_families``): granite-moe-1b-a400m (two
-   bf16 AdamW steps at B 4 x 512, 4 routing groups; a generate of B 2 x
-   256 in f32 and bf16), mixtral-8x7b (1 of 32 layers, B 1 x 4096
-   filling its 4096-slot ring, 2,048 slots a rank), musicgen-medium and
-   llava-next-mistral-7b (2 of 32 layers, 1,152 image embeds) in bf16,
+   window's ring (``phase_mesh_families``): granite-moe-1b-a400m (12 of
+   24 layers; two bf16 AdamW steps at B 4 x 512, 4 routing groups; a
+   generate of B 2 x 256 in f32 and bf16), mixtral-8x7b (1 of 32 layers,
+   B 1 x 4096 filling its 4096-slot ring, 2,048 slots a rank),
+   musicgen-medium (24 of 48 layers) and llava-next-mistral-7b (2 of 32
+   layers, 1,152 image embeds) in bf16,
    each against the one-device run under the same context (MoE in bf16
    on the one-device run's expert choices, its own flips counted);
 13. then the same for the recurrent families (``phase_mesh_recurrent``):
@@ -2910,7 +2917,8 @@ def _train_run(dtype):
                 step0=_step0_readings(kernel0, plain0, dtype),
                 held=tally, planted=planted,
                 n_params=sum(p.numel() for p in model.parameters()),
-                n_layers=model.cfg.n_layers)
+                flash_per_step=model.cfg.n_layers * (2 if model.cfg.remat
+                                                     else 1))
 
 
 def train_step_profile(step):
@@ -2942,9 +2950,11 @@ def phase_train():
     x S 512 from the port's TokenStream, TRAIN_STEPS AdamW steps in float32
     and in bf16 with f32 master weights; step 0's ce, grad_norm and the
     layer-0 gradients of wq and w_down, kernel route vs plain route within
-    TRAIN_TOL, each of step 0's 32 flash calls within flash_tolerance of
-    the plain version on its inputs, and each of TRAIN_PLANTS outside
-    TRAIN_TOL; the loss falls; 32 flash launches a step."""
+    TRAIN_TOL, each of step 0's 64 flash calls (the forward's 32, and
+    ``cfg.remat``'s recompute of every block in the backward) within
+    flash_tolerance of the plain version on its inputs, and each of
+    TRAIN_PLANTS outside TRAIN_TOL; the loss falls; 64 flash launches a
+    step."""
     card = card_line()
     out, launches = {}, 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -2952,12 +2962,12 @@ def phase_train():
         name = str(dtype)[6:]
         rel_tol, g_tol = TRAIN_TOL[dtype]
         rel, g_rel, within = r["step0"]
-        want = {"flash_attention": r["n_layers"] * TRAIN_STEPS,
+        want = {"flash_attention": r["flash_per_step"] * TRAIN_STEPS,
                 "decode_attention": 0, "sdca_local_solve": 0}
         if r["counts"] != want:
             raise AssertionError(f"train {name}: launches {r['counts']}, "
                                  f"expected {want}")
-        if r["held"].get("calls") != r["n_layers"] or not within:
+        if r["held"].get("calls") != r["flash_per_step"] or not within:
             raise AssertionError(f"train {name}: step 0 kernel vs plain "
                                  f"route {rel}, gradients {g_rel}, flash "
                                  f"calls held {r['held']}")
@@ -3007,6 +3017,76 @@ def phase_train():
               + "; ".join(f"{k} x{c} {ms:.2f} ms" for k, c, ms in
                           prof["top"]) + f" [{card}]", flush=True)
     return dict(runs=out, launches=launches)
+
+
+#: ``phase_remat``'s case: rwkv6-7b at full width, 2 of its 32 layers,
+#: one 4,096-token row (train_4k's row a device on pod16x16), bf16 with
+#: f32 masters
+REMAT_CASE = ("rwkv6-7b", 2, 1, 4096, torch.bfloat16)
+
+
+def _remat_step(cfg, b, s, dtype):
+    """Step 0's gradients and metrics of ``cfg`` on the card, and the
+    step's peak above the parameters and optimizer state (GiB)."""
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import (TrainConfig, init_train_state,
+                                        make_grad_fn)
+    from repro_torch.train.optimizer import tree_leaves
+    tc = TrainConfig(compute_dtype=dtype,
+                     master_weights=dtype != torch.float32)
+    model = build_model(cfg, device=DEV, seed=0)
+    params, _ = init_train_state(model, tc)
+    batch = _mesh_batch(cfg, b, s, 7)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grads, metrics = make_grad_fn(model, tc)(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    out = ([g.float().cpu() for g in tree_leaves(grads)],
+           {k: float(v) for k, v in metrics.items()}, peak, wall)
+    del model, params, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat():
+    """``cfg.remat`` on one card at full width (REMAT_CASE): the train
+    step's gradients with each block recomputed in the backward against
+    the step without (``remat=False``; rwkv6's wkv chunks are recomputed
+    in both), ce and grad_norm within TRAIN_TOL's relative limit, every
+    gradient leaf within its limit of the leaf's max|g|; both steps'
+    peaks above the parameters and optimizer state
+    (``max_memory_allocated``) and walls."""
+    arch, depth, b, s, dtype = REMAT_CASE
+    cfg = _mesh_cfg(arch, depth)
+    if not cfg.remat:
+        raise AssertionError(f"{arch} does not set remat")
+    g1, m1, peak1, wall1 = _remat_step(cfg, b, s, dtype)
+    g0, m0, peak0, wall0 = _remat_step(dataclasses.replace(cfg, remat=False),
+                                       b, s, dtype)
+    rel_tol, g_tol = TRAIN_TOL[dtype]
+    rel = {k: abs(m1[k] - m0[k]) / abs(m0[k]) for k in ("ce", "grad_norm")}
+    g_rel = max(float((a - c).abs().max()) / max(float(c.abs().max()),
+                                                 1e-30)
+                for a, c in zip(g1, g0))
+    ok = max(rel.values()) <= rel_tol and g_rel <= g_tol and all(
+        bool(torch.isfinite(a).all()) for a in g1)
+    print(f"remat [{arch} full width, {depth} layers, "
+          f"{str(dtype)[6:]} + f32 masters, B{b} x S{s}]: remat against "
+          f"no remat ce {rel['ce']:.2e}, grad_norm {rel['grad_norm']:.2e} "
+          f"(tolerance {rel_tol:g}), gradients {g_rel:.2e} of max|g| "
+          f"(tolerance {g_tol:g}); step peak above the state: remat "
+          f"{peak1:.3f} GiB, no remat {peak0:.3f} GiB; wall {wall1:.2f} / "
+          f"{wall0:.2f} s [{card_line()}] {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"remat {arch}: {rel}, gradients {g_rel}")
+    return dict(arch=arch, layers=depth, batch=b, seq=s, rel=rel,
+                grad_rel=g_rel, peak_gib=peak1, peak_gib_no_remat=peak0,
+                wall_s=wall1, wall_s_no_remat=wall0)
 
 
 # ---------------------------------------------------------------------------
@@ -3372,6 +3452,10 @@ DRYRUN_COSTS_BUDGET_S = 90.0
 DRYRUN_COST_CASES = (("smollm-360m", "train_4k"), ("mixtral-8x7b",
                                                    "decode_32k"),
                      ("rwkv6-7b", "train_4k"), ("zamba2-7b", "prefill_32k"))
+#: cases of the card probe alone (temp bytes; no CPU probe): mixtral-8x7b
+#: train_4k, whose expert products asked for 224 GiB before they were
+#: computed as one bmm over E (PERF.md §6)
+DRYRUN_CARD_ONLY = (("mixtral-8x7b", "train_4k"),)
 #: smollm-360m train_4k's temp bytes differenced from two depths against a
 #: full-depth run, relative: the step's live set grows by a layer's saved
 #: activations a layer, and what is not linear in depth (the optimizer's
@@ -3411,27 +3495,30 @@ def dryrun_costs_run(out):
                   for (a, s), cfg in zip(DRYRUN_COST_CASES, cfgs)]
     big = [c for c in card_cases if c[0] == "rwkv6-7b"]
     big.append(["smollm-360m", "train_4k", [32]])
-    rest = [c for c in card_cases if c[0] != "rwkv6-7b"]
+    rest = [c for c in card_cases if c[0] != "rwkv6-7b"] + [
+        [a, s, dryrun.card_depths(resolve_arch_for_shape(a, s)[0])]
+        for a, s in DRYRUN_CARD_ONLY]
     with ThreadPoolExecutor(len(DRYRUN_COST_CASES) + 2) as pool:
-        # beside the CPU's probes, two card processes: rwkv6 (50 GiB at 3
-        # layers), then smollm's 32 layers (10.4 GiB), from the start,
-        # beside the MOCHA rounds (4.7 GB); the other cases (at most 8.4
-        # GiB) once those are done.  With the script's own ~6 GB that
-        # fits the card's 79 GiB, where all at once did not
+        # beside the CPU's probes and the MOCHA rounds (4.7 GB), two card
+        # processes from the start: rwkv6 (~7 GiB at 3 layers with remat;
+        # 50 without it, when the others had to wait for the rounds), then
+        # smollm's 32 layers (4.5 GiB); and the other cases (at most 8.9
+        # GiB, mixtral's train step).  With the script's own ~6 GB that
+        # fits the card's 79 GiB
         big = pool.submit(probe.spawn, "card_memory", cases=big)
+        rest = pool.submit(probe.spawn, "card_memory", cases=rest)
         costs = [pool.submit(roofline.measure_full_depth, a, s)
                  for a, s in DRYRUN_COST_CASES]
         moch = {wire: mocha_dryrun.run(bf16_wire=wire)
                 for wire in (False, True)}
-        torch.cuda.empty_cache()
-        rest = pool.submit(probe.spawn, "card_memory", cases=rest)
         costs = [f.result() for f in costs]
         big, rest = big.result()["cases"], rest.result()["cases"]
         by_case = {(c["arch"], c["shape"]): c for c in big[:-1] + rest}
         card = [by_case[c] for c in DRYRUN_COST_CASES] + big[-1:]
+        card_only = [by_case[c] for c in DRYRUN_CARD_ONLY]
     out_rec = {"cases": {}, "mocha": {}}
     launches = {"flash_attention": 0, "decode_attention": 0}
-    for c in card:
+    for c in card + card_only:
         for d in c["depths"].values():
             if d["status"] != "ok":
                 raise AssertionError(
@@ -3464,6 +3551,26 @@ def dryrun_costs_run(out):
             "card_depths": {d: {k: v[k] for k in ("temp_bytes", "step_s",
                                                   "launches")}
                             for d, v in got["depths"].items()}}
+    memory = torch.cuda.get_device_properties(0).total_memory
+    rwkv6 = out_rec["cases"]["rwkv6-7b train_4k"]["temp_bytes"]
+    print(f"dryrun costs rwkv6-7b train_4k temp {rwkv6 / gib:.3f} GiB of "
+          f"the card's {memory / gib:.2f} GiB", flush=True)
+    if rwkv6 > memory:
+        raise AssertionError(f"rwkv6-7b train_4k needs {rwkv6 / gib:.1f} "
+                             f"GiB a device, over the card's memory")
+    out_rec["card_only"] = {}
+    for (arch, shape), got in zip(DRYRUN_CARD_ONLY, card_only):
+        cfg = resolve_arch_for_shape(arch, shape)[0]
+        temp = dryrun.temp_from_depths(cfg, got["depths"])["temp_bytes"]
+        print(f"dryrun costs {arch} {shape} pod16x16 (card probe): temp "
+              f"{temp / gib:.3f} GiB; at each depth " + ", ".join(
+                  f"L{n} {d['temp_bytes'] / gib:.3f}"
+                  for n, d in got["depths"].items()), flush=True)
+        out_rec["card_only"][f"{arch} {shape}"] = {
+            "temp_bytes": temp,
+            "card_depths": {d: {k: v[k] for k in ("temp_bytes", "step_s",
+                                                  "launches")}
+                            for d, v in got["depths"].items()}}
     smollm = out_rec["cases"]["smollm-360m train_4k"]["temp_bytes"]
     full = card[-1]["depths"]["32"]["temp_bytes"]
     share = abs(smollm - full) / full
@@ -3492,13 +3599,15 @@ def phase_dryrun_costs():
     --costs`` records): in a process of its own (``chip_smoke.py
     --dryrun-costs``), for
     smollm-360m train_4k, mixtral-8x7b decode_32k, rwkv6-7b train_4k and
-    zamba2-7b prefill_32k on pod16x16, each a step as rank 0 of a fake
+    zamba2-7b prefill_32k on pod16x16 (and mixtral-8x7b train_4k's temp
+    bytes alone, ``DRYRUN_CARD_ONLY``), each a step as rank 0 of a fake
     256-rank group: FLOPs, bytes and collective bytes a device (the CPU
     probes on FakeTensors) and the temp bytes on the card (the kernel
     route on rank 0's real shards), both at two depths differenced to full
     depth; the card's collectives at each depth equal to the fake probe's
     by kind and bytes; smollm-360m's differenced temp bytes within
-    ``DRYRUN_TEMP_RTOL`` of a full-depth run; the MOCHA round at its
+    ``DRYRUN_TEMP_RTOL`` of a full-depth run; rwkv6-7b train_4k's
+    within the card's memory (``cfg.remat``); the MOCHA round at its
     default sizes (m 512, d 561), f32 and bf16 wire, one all-gather of
     ``MOCHA_GATHER_BYTES``; within ``DRYRUN_COSTS_BUDGET_S``; and no
     process group left in this process."""
@@ -3539,25 +3648,28 @@ MESH_TIMEOUT_S = 600
 MESH_SEQ = 512
 #: (arch, layers run (None: all), dtype, batch): MESH_TRAIN_STEPS AdamW
 #: steps each; B 4 puts the batch over ('data', 'model'), B 2 over
-#: ('data',) with the weights over 'model'.  SmolLM-360M runs 16 of its
-#: 32 layers, to keep the two mesh phases within the script's time
-MESH_TRAIN = (("smollm-360m", 16, torch.bfloat16, 4),
-              ("smollm-360m", 16, torch.float32, 2))
+#: ('data',) with the weights over 'model'.  SmolLM-360M runs 8 of its
+#: 32 layers (16 from PR 24, 8 since the train steps recompute each
+#: block: PERF.md §6), to keep the mesh phases within the script's time
+MESH_TRAIN = (("smollm-360m", 8, torch.bfloat16, 4),
+              ("smollm-360m", 8, torch.float32, 2))
 MESH_TRAIN_STEPS = 2
 #: (arch, layers run, batch, prompt, dtypes) of one generate each (vlm:
 #: the text after the image embeds; audio: frames of n_codebooks tokens)
-MESH_GEN = (("smollm-360m", 16, 8, 1024, (torch.float32, torch.bfloat16)),
-            ("granite-3-2b", None, 2, 256, (torch.bfloat16,)))
+MESH_GEN = (("smollm-360m", 8, 8, 1024, (torch.float32, torch.bfloat16)),
+            ("granite-3-2b", 20, 2, 256, (torch.bfloat16,)))
 MESH_NEW = 8
 #: ``phase_mesh_families``' runs, as MESH_TRAIN and MESH_GEN.  Depth is cut
 #: only for the phase's time: mixtral-8x7b at 1 of 32 layers (1.6 B
-#: params), llava at 2 of 32.  granite-moe trains at B 4 x 512 over
-#: ('data', 'model'): 4 routing groups.
-MESH_FAMILY_TRAIN = (("granite-moe-1b-a400m", None, torch.bfloat16, 4),)
+#: params), llava at 2 of 32, granite-moe at 12 of 24 and musicgen at 24
+#: of 48 (all of both until the train steps recomputed each block).
+#: granite-moe trains at B 4 x 512 over ('data', 'model'): 4 routing
+#: groups.
+MESH_FAMILY_TRAIN = (("granite-moe-1b-a400m", 12, torch.bfloat16, 4),)
 MESH_FAMILY_GEN = (
-    ("granite-moe-1b-a400m", None, 2, 256, (torch.float32, torch.bfloat16)),
+    ("granite-moe-1b-a400m", 12, 2, 256, (torch.float32, torch.bfloat16)),
     ("mixtral-8x7b", 1, 1, 4096, (torch.float32, torch.bfloat16)),
-    ("musicgen-medium", None, 2, 256, (torch.bfloat16,)),
+    ("musicgen-medium", 24, 2, 256, (torch.bfloat16,)),
     ("llava-next-mistral-7b", 2, 1, 128, (torch.bfloat16,)))
 #: ``phase_mesh_recurrent``'s runs: depth cut only for the phase's time,
 #: rwkv6-7b to 2 of 32 layers, zamba2-7b to 7 of 81 (one period of six
@@ -4085,12 +4197,12 @@ def phase_mesh_step():
     """The sharded LM step (``launch.specs.build_case``'s ``fn`` on DTensor
     parameters, optimizer state, batch and cache) on a 2 x 2 mesh of
     MESH_RANKS gloo ranks sharing the card (spawned ``chip_smoke.py
-    --mesh-rank``), the dense family: SmolLM-360M at full width (16 of
+    --mesh-rank``), the dense family: SmolLM-360M at full width (8 of
     32 layers), MESH_TRAIN_STEPS AdamW steps in bf16 with f32 masters at
     B 4 x 512 (batch over ('data', 'model')) and in f32 at B 2 x 512
     (over ('data',)); one generate (prefill, then MESH_NEW - 1 decode
     steps) of SmolLM-360M at B 8, prompt 1024, f32 and bf16, and of
-    granite-3-2b (all 40 layers) at B 2, prompt 256, bf16 (heads split
+    granite-3-2b (20 of 40 layers) at B 2, prompt 256, bf16 (heads split
     over 'model'), the decode steps fed the one-device run's tokens; held
     as ``_mesh_phase`` holds them."""
     return _mesh_phase("step", "mesh step")
@@ -4099,13 +4211,14 @@ def phase_mesh_step():
 def phase_mesh_families():
     """``phase_mesh_step`` for the attention-block families past the dense
     one and the window's ring (MESH_FAMILY_TRAIN, MESH_FAMILY_GEN), at full
-    width, random weights from seed 0: granite-moe-1b-a400m (32 experts,
-    top-8) two bf16 AdamW steps with f32 masters at B 4 x 512 (batch over
+    width, random weights from seed 0: granite-moe-1b-a400m (12 of 24
+    layers, 32 experts, top-8) two bf16 AdamW steps with f32 masters at B
+    4 x 512 (batch over
     ('data', 'model'): 4 routing groups) and a generate of B 2 x 256 + 8
     in f32 and bf16; mixtral-8x7b (1 of 32 layers) B 1 x 4096 + 8, f32 and
     bf16, the prompt filling the 4096-slot ring (2,048 a rank) and each
-    decode step overwriting its oldest slot; musicgen-medium B 2 x 256
-    frames + 8, bf16; llava-next-mistral-7b (2 of 32 layers) B 1 x (1,152
+    decode step overwriting its oldest slot; musicgen-medium (24 of 48
+    layers) B 2 x 256 frames + 8, bf16; llava-next-mistral-7b (2 of 32 layers) B 1 x (1,152
     image embeds + 128 text) + 8, bf16.  Each run is held against the
     same run on one device under the same ``activation_sharding`` context
     (MoE in as many groups); in bf16 MoE on the one-device run's expert
@@ -4164,6 +4277,7 @@ def main() -> int:
     phase_lm_small_reference()
     pers = phase_personalize()
     train = phase_train()
+    remat = phase_remat()
     families = phase_families()
     dry = phase_dryrun()
     dry_costs = phase_dryrun_costs()
@@ -4247,6 +4361,7 @@ def main() -> int:
     print(json.dumps({"sharded_path": sharded}))
     print(json.dumps({"personalize": pers}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"remat": remat}))
     print(json.dumps({"families": families["runs"]}))
     print(json.dumps({"dryrun": dry}))
     print(json.dumps({"dryrun_costs": dry_costs}))

@@ -271,8 +271,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
-    if args.all:
-        cases = [(a, s) for a in ALL_ARCHS for s in SHAPES]
+    if args.all:        # every arch, at --shape where it is given
+        cases = [(a, s) for a in ALL_ARCHS
+                 for s in ([args.shape] if args.shape else SHAPES)]
     elif args.arch and args.shape:
         cases = [(args.arch, args.shape)]
     else:

@@ -78,13 +78,28 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int,
 # products
 # ---------------------------------------------------------------------------
 
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; for the experts' (G, E, C, K) by (E, K, N) one ``bmm``
+    with E its batch dim over (E, G * C, K), as the JAX package's einsums
+    contract (``gecd,edf->gecf``): ``@`` would broadcast the stack over G
+    and copy it G times, and its gradient too, and on a mesh DTensor
+    expands the replicated stack to the global G on every rank (PERF.md
+    §6: mixtral-8x7b's 224 GiB at 256 groups)."""
+    if w.dim() != 3:
+        return x @ w
+    g, e, c, k = x.shape
+    out = torch.bmm(x.transpose(0, 1).reshape(e, g * c, k), w)
+    return out.view(e, g, c, w.shape[-1]).transpose(0, 1)
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` (``w`` a matrix, or a stack of them: the experts').  On a
-    mesh in bf16 with ``w``'s input dim (its next-to-last) split over a
-    mesh dim that does not split ``x``'s rows (tensor parallelism: each
-    rank's product a part of the sum; where the rows are split there too,
-    FSDP gathers ``w`` instead), the parts are formed and added in f32 and
-    the sum rounded to bf16 once, as the one-device bf16 product
+    """``x @ w`` (``w`` a matrix, or a stack of them: the experts', through
+    ``_product``).  On a mesh in bf16 with ``w``'s input dim (its
+    next-to-last) split over a mesh dim that does not split ``x``'s rows
+    (tensor parallelism: each rank's product a part of the sum; where the
+    rows are split there too, FSDP gathers ``w`` instead), the parts are
+    formed and added in f32 and the sum rounded to bf16 once, as the
+    one-device bf16 product
     accumulates in f32 and rounds once: parts rounded to bf16 before the
     sum would each add a rounding, which granite-3-2b's 40 layers carry
     past the serving contract's bf16 limit (PERF.md §6).  On a mesh
@@ -94,15 +109,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     gradient laid out as no activation is, which the card's torch cannot
     redistribute (PERF.md §6)."""
     if not pj.on_mesh(w):
-        return x @ w
+        return _product(x, w)
     from torch.distributed.tensor import Replicate
     w = w.redistribute(w.device_mesh, [
         Replicate() if q.is_shard(0) else p
         for p, q in zip(w.placements, x.placements)])
     if not (x.dtype == torch.bfloat16
             and any(p.is_shard(w.dim() - 2) for p in w.placements)):
-        return x @ w
-    out = x.float() @ w.float()
+        return _product(x, w)
+    out = _product(x.float(), w.float())
     out = out.redistribute(out.device_mesh, [
         Replicate() if p.is_partial() else p for p in out.placements])
     return out.to(x.dtype)
@@ -216,6 +231,10 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
+        # in training flash_mha keeps q, k and v alone for its backward:
+        # what the JAX package's checkpoint of its query chunks keeps, so
+        # nothing is added here (its backward's plain recompute holds one
+        # layer's (B, H, S, S) scores at a time, JAX's one chunk's)
         out = flash_mha(q, k, v, causal=True, window=window)
     else:
         t = cache["k"].shape[1]

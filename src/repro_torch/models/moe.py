@@ -10,8 +10,10 @@ tokens are dropped: a group's (token, k) assignments are stably sorted by
 expert, an assignment's rank is its place among its expert's
 (``searchsorted``), ranks at or past the capacity go to an overflow bucket
 that is thrown away, and a dropped assignment adds nothing (the token
-keeps its residual).  The expert FFNs are batched matmuls, as the JAX
-package's einsums.
+keeps its residual).  Each expert product is one ``bmm`` with E its batch
+dim over (E, G * C, D), as the JAX package's einsums contract
+(``layers.matmul``): neither the expert stack nor its gradient is copied
+over the G groups.
 
 The combine has no atomics: each token has exactly ``top_k`` assignments,
 which are put back in token order and summed over k one after another, so

@@ -21,6 +21,7 @@ and the decay are pinned where the JAX package pins them (heads over
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Tuple
 
 import torch
@@ -155,6 +156,29 @@ def _heads(t: torch.Tensor, h: int, n: int) -> torch.Tensor:
     return constrain(t, BATCH, None, "model", None)
 
 
+def _wkv_chunk(S, r_i, k_i, v_i, lw_i, u, strict):
+    """One chunk of ``_wkv_chunked``: (S', y_i) from the state S (B·H, N,
+    N) and the chunk's r, k, v and log-decays (B·H, q, N), each head a
+    batch row, so that each contraction is one ``bmm``; u (B·H, 1, N)."""
+    l = torch.cumsum(lw_i, dim=1)                          # L_t, inclusive
+    l_prev = l - lw_i                                      # L_{t-1}
+    # pairwise decay exp(L_{t-1}[t] - L[s]) for s < t, per channel
+    ldiff = l_prev[:, :, None] - l[:, None]                # (BH,t,s,N)
+    ldiff = torch.where(strict, ldiff, -torch.inf)
+    m = (r_i[:, :, None] * k_i[:, None] * torch.exp(ldiff)).sum(-1)
+    y = torch.bmm(m, v_i)                                  # (BH,t,N)
+    # bonus diagonal: y_t += (r_t . u*k_t) v_t
+    y = y + (r_i * u * k_i).sum(-1, keepdim=True) * v_i
+    # inter-chunk: y_t += (r_t * exp(L_{t-1})) . S_prev
+    y = y + torch.bmm(r_i * torch.exp(l_prev), S)
+    # S' = diag(exp(L_Q)) S + sum_s exp(L_Q - L_s) k_s v_s^T
+    l_last = l[:, -1:]                                     # (BH,1,N)
+    k_tilde = k_i * torch.exp(l_last - l)
+    S = (torch.exp(l_last).transpose(1, 2) * S
+         + torch.bmm(k_tilde.transpose(1, 2), v_i))
+    return S, y
+
+
 def _wkv_chunked(r, k, v, w, u, state, chunk: int):
     """Chunked linear-attention scan with per-channel data-dependent decay.
 
@@ -163,7 +187,11 @@ def _wkv_chunked(r, k, v, w, u, state, chunk: int):
     decay exp(L_{t-1} - L_s) is computed in log space and masked before the
     exp, so nothing overflows; the chunk summaries carry the state from one
     chunk to the next.  A length that is not a multiple of ``chunk`` runs
-    as chunks of 1 (shorter than ``chunk``) or as one chunk of S.
+    as chunks of 1 (shorter than ``chunk``) or as one chunk of S.  Where a
+    gradient is taken each chunk's body is recomputed in the backward, as
+    the JAX package checkpoints it: kept, its (B, H, q, q, N) pairwise
+    decays would stay alive for every chunk (14.7 GiB a layer at one
+    4,096-token row of rwkv6-7b, PERF.md §6).
     """
     b, s, h, n = r.shape
     if s % chunk != 0:
@@ -171,32 +199,22 @@ def _wkv_chunked(r, k, v, w, u, state, chunk: int):
     nc = s // chunk
     logw = torch.log(torch.clamp(w, min=1e-12))            # <= 0
     strict = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                   device=r.device), -1)[None, :, :, None,
-                                                         None]
-    S = state.float()
+                                   device=r.device), -1)[:, :, None]
+    body = _wkv_chunk
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, state)):
+        body = functools.partial(pj.checkpoint, _wkv_chunk)
+    r, k, v, logw = (t.transpose(1, 2).reshape(b * h, s, n)
+                     for t in (r, k, v, logw))
+    u = u.expand(b, h, n).reshape(b * h, 1, n)
+    S = state.float().reshape(b * h, n, n)
     ys = []
     for ci in range(nc):
         sl = slice(ci * chunk, (ci + 1) * chunk)
-        r_i, k_i, v_i, lw_i = r[:, sl], k[:, sl], v[:, sl], logw[:, sl]
-        l = torch.cumsum(lw_i, dim=1)                      # L_t, inclusive
-        l_prev = l - lw_i                                  # L_{t-1}
-        # pairwise decay exp(L_{t-1}[t] - L[s]) for s < t, per channel
-        ldiff = l_prev[:, :, None] - l[:, None, :]         # (B,t,s,H,N)
-        ldiff = torch.where(strict, ldiff, -torch.inf)
-        m = torch.einsum("bthn,bshn,btshn->bhts", r_i, k_i, torch.exp(ldiff))
-        y = torch.einsum("bhts,bshn->bthn", m, v_i)
-        # bonus diagonal: y_t += (r_t . u*k_t) v_t
-        diag = torch.einsum("bthn,hn,bthn->bth", r_i, u, k_i)
-        y = y + diag[..., None] * v_i
-        # inter-chunk: y_t += (r_t * exp(L_{t-1})) . S_prev
-        y = y + torch.einsum("bthn,bhnj->bthj", r_i * torch.exp(l_prev), S)
-        # S' = diag(exp(L_Q)) S + sum_s exp(L_Q - L_s) k_s v_s^T
-        l_last = l[:, -1]                                  # (B,H,N)
-        k_tilde = k_i * torch.exp(l_last[:, None] - l)
-        S = (torch.exp(l_last)[..., None] * S
-             + torch.einsum("bshn,bshj->bhnj", k_tilde, v_i))
+        S, y = body(S, r[:, sl], k[:, sl], v[:, sl], logw[:, sl], u, strict)
         ys.append(y)
-    return torch.cat(ys, dim=1), S
+    y = torch.cat(ys, dim=1).view(b, h, s, n).transpose(1, 2)
+    return y, S.view(b, h, n, n)
 
 
 def _wkv(r, k, v, w, bonus, state, n: int):

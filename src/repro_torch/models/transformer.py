@@ -16,8 +16,9 @@ the JAX package's tree layout with blocks as a list:
 "blocks": [per-layer tree, ...]}``.  Its methods mirror the JAX API
 without the params argument:
 
-  apply(batch, dtype) -> (logits, aux)        full-sequence forward
-  forward(W, batch, dtype) -> (logits, aux)   the same over a tree ``W``
+  apply(batch, dtype, train) -> (logits, aux)   full-sequence forward
+  forward(W, batch, dtype, train) -> (logits, aux)
+                                              the same over a tree ``W``
                                               (differentiable: training)
   features(batch, dtype) -> (B, S, D)         final hidden
   init_cache(batch, max_len, dtype) -> cache
@@ -29,9 +30,13 @@ A cache is ``{"blocks": ..., "pos": (B,)}``: per layer an attention cache
 "x_prev_cm", "S"}``; the hybrid's is ``{"mamba": [per-layer {"conv",
 "ssm"}], "shared": [per-call attention cache], "tail": None}``.  Layers run
 in a Python loop (the JAX package's reduced-config path; its scan over
-stacked layers computes the same).  Attention goes through the Hopper
-kernels (their plain versions on CPU tensors); the MoE dispatch, the wkv
-and SSD scans are plain torch, as they are plain jnp there.
+stacked layers computes the same).  With ``cfg.remat`` (every config
+sets it) and ``train`` each block is recomputed in the backward
+(``pjit_utils.checkpoint``), zamba2's whole periods where
+``cfg.scan_layers``, as the JAX package's ``jax.checkpoint``.  Attention
+goes through the Hopper kernels (their plain versions on CPU tensors);
+the MoE dispatch, the wkv and SSD scans are plain torch, as they are
+plain jnp there.
 
 On a mesh (``load_tree`` of DTensor leaves placed by ``launch.sharding``,
 a DTensor batch, inside ``utils.pjit_utils.activation_sharding``) every
@@ -253,6 +258,15 @@ def _embed_on_mesh(table, tok, dtype: torch.dtype):
     return pj.local(look, out, table, tok)
 
 
+def _remat(fn, remat: bool):
+    """``fn``, or ``fn`` recomputed in the backward where ``remat``
+    (``pjit_utils.checkpoint``): the JAX package's ``jax.checkpoint`` of
+    a block when ``cfg.remat and train``."""
+    if not remat:
+        return fn
+    return lambda *args: pj.checkpoint(fn, *args)
+
+
 def _merge_aux(acc: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor]):
     for k, v in aux.items():
         acc[k] = acc.get(k, 0.0) + v
@@ -396,12 +410,13 @@ class Model(nn.Module):
         return h, positions
 
     def _run_attn_stack(self, W, x, positions, caches, cache_pos,
-                        moe_capacity):
+                        moe_capacity, train):
         cfg = self.cfg
+        body = _remat(_attn_block_apply, cfg.remat and train)
         aux: Dict[str, torch.Tensor] = {}
         new_caches: List[Optional[Dict[str, torch.Tensor]]] = []
         for i, blk in enumerate(W["blocks"]):
-            x, nc, aux_i = _attn_block_apply(
+            x, nc, aux_i = body(
                 blk, x, cfg, positions, cfg.sliding_window,
                 caches[i] if caches is not None else None, cache_pos,
                 moe_capacity)
@@ -411,53 +426,81 @@ class Model(nn.Module):
             aux = {k: v / cfg.n_layers for k, v in aux.items()}
         return x, (new_caches if caches is not None else None), aux
 
-    def _run_rwkv_stack(self, W, x, states):
+    def _run_rwkv_stack(self, W, x, states, train):
+        body = _remat(_rwkv_block_apply, self.cfg.remat and train)
         new_states = []
         for i, blk in enumerate(W["blocks"]):
-            x, ns = _rwkv_block_apply(
+            x, ns = body(
                 blk, x, self.cfg, states[i] if states is not None else None)
             new_states.append(ns)
         return x, (new_states if states is not None else None), {}
 
-    def _run_hybrid_stack(self, W, x, x0, positions, caches, cache_pos):
+    def _run_hybrid_stack(self, W, x, x0, positions, caches, cache_pos,
+                          train):
         """Zamba2: periods of ``shared_attn_period`` mamba blocks, each
         followed by the weight-shared attention block through its own
         (unshared) 2D -> D projection of concat(x, x0); the blocks past the
-        last whole period run without it."""
+        last whole period run without it.  With remat (``cfg.remat`` and
+        ``train``) each whole period is recomputed in the backward where
+        ``cfg.scan_layers`` (the JAX package's checkpointed period scan,
+        which saves one residual a period), and the tail blocks each; else
+        each mamba block and each shared call (its loop path)."""
         cfg = self.cfg
         period, has_cache = cfg.shared_attn_period, caches is not None
+        remat = cfg.remat and train
+
+        def mamba_body(x, blk, st):
+            return _mamba_block_apply(blk, x, cfg, st)
+
+        def shared_body(x, proj, cache):
+            inp = constrain(L.matmul(torch.cat([x, x0], dim=-1),
+                                     proj.to(x.dtype)),
+                            BATCH, None, None)    # a block's input
+            out, nc, _ = _attn_block_apply(W["shared"], inp, cfg, positions,
+                                           None, cache, cache_pos)
+            return x + out, nc
+
+        if remat and cfg.scan_layers and not has_cache:
+            def period_body(x, j):
+                for blk in W["blocks"][j * period:(j + 1) * period]:
+                    x = mamba_body(x, blk, None)[0]
+                return shared_body(x, W["shared_proj"][j], None)[0]
+
+            for j in range(self.n_periods):
+                x = pj.checkpoint(period_body, x, j)
+            for blk in W["blocks"][self.n_periods * period:]:
+                x = pj.checkpoint(mamba_body, x, blk, None)[0]
+            return x, None, {}
+        mamba_body = _remat(mamba_body, remat)
+        shared_body = _remat(shared_body, remat)
         new_m, new_s = [], []
         si = 0
         for i, blk in enumerate(W["blocks"]):
-            x, ns = _mamba_block_apply(
-                blk, x, cfg, caches["mamba"][i] if has_cache else None)
+            x, ns = mamba_body(x, blk,
+                               caches["mamba"][i] if has_cache else None)
             new_m.append(ns)
             if (i + 1) % period == 0 and si < self.n_periods:
-                inp = constrain(L.matmul(torch.cat([x, x0], dim=-1),
-                                         W["shared_proj"][si].to(x.dtype)),
-                                BATCH, None, None)    # a block's input
-                out, nsc, _ = _attn_block_apply(
-                    W["shared"], inp, cfg, positions, None,
-                    caches["shared"][si] if has_cache else None, cache_pos)
-                x = x + out
+                x, nsc = shared_body(
+                    x, W["shared_proj"][si],
+                    caches["shared"][si] if has_cache else None)
                 new_s.append(nsc)
                 si += 1
         if has_cache:
             return x, {"mamba": new_m, "shared": new_s, "tail": None}, {}
         return x, None, {}
 
-    def _backbone(self, W: Params, batch, caches, cache_pos,
+    def _backbone(self, W: Params, batch, caches, cache_pos, train,
                   dtype=torch.float32, moe_capacity=None):
         cfg = self.cfg
         x, positions = self.embed(W, batch, dtype)
         if cfg.block_type == "attention":
             x, new_caches, aux = self._run_attn_stack(
-                W, x, positions, caches, cache_pos, moe_capacity)
+                W, x, positions, caches, cache_pos, moe_capacity, train)
         elif cfg.block_type == "rwkv6":
-            x, new_caches, aux = self._run_rwkv_stack(W, x, caches)
+            x, new_caches, aux = self._run_rwkv_stack(W, x, caches, train)
         else:
             x, new_caches, aux = self._run_hybrid_stack(
-                W, x, x, positions, caches, cache_pos)
+                W, x, x, positions, caches, cache_pos, train)
         return L.apply_norm(W["final_norm"], x, cfg.norm), new_caches, aux
 
     def logits(self, W: Params, h: torch.Tensor) -> torch.Tensor:
@@ -480,22 +523,24 @@ class Model(nn.Module):
         return constrain(out, BATCH, *([None] * (out.ndim - 2)), "model")
 
     def forward(self, W: Params, batch: Dict[str, torch.Tensor],
-                dtype: torch.dtype = torch.float32):
+                dtype: torch.dtype = torch.float32, train: bool = True):
         """Full-sequence logits over the parameter tree ``W`` (this model's
         layout; the layers cast matrices to ``dtype`` at use).  Autograd
         flows to ``W``'s leaves; ``aux`` holds the MoE auxiliaries (their
-        mean over the layers), empty for the other families."""
-        h, _, aux = self._backbone(W, batch, None, None, dtype)
+        mean over the layers), empty for the other families.  ``train``
+        as the JAX package's ``apply``: with ``cfg.remat`` each block's
+        activations are recomputed in the backward instead of kept."""
+        h, _, aux = self._backbone(W, batch, None, None, train, dtype)
         return self.logits(W, h), aux
 
     def apply(self, batch: Dict[str, torch.Tensor],
-              dtype: torch.dtype = torch.float32):
-        return self.forward(self.weights(dtype), batch, dtype)
+              dtype: torch.dtype = torch.float32, train: bool = True):
+        return self.forward(self.weights(dtype), batch, dtype, train)
 
     def features(self, batch: Dict[str, torch.Tensor],
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
         return self._backbone(self.weights(dtype), batch, None, None,
-                              dtype)[0]
+                              False, dtype)[0]
 
     # -- caches / serving ----------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int,
@@ -529,7 +574,7 @@ class Model(nn.Module):
         W = self.weights(dtype) if params is None else params
         batch = dict(batch, start_pos=cache["pos"])
         h, new_blocks, _ = self._backbone(W, batch, cache["blocks"],
-                                          cache["pos"], dtype)
+                                          cache["pos"], False, dtype)
         return self.logits(W, h[:, -1]), {"blocks": new_blocks,
                                           "pos": cache["pos"] + h.shape[1]}
 
@@ -548,7 +593,7 @@ class Model(nn.Module):
                                                 dtype=dtype,
                                                 device=tokens.device)
         h, new_blocks, _ = self._backbone(
-            W, batch, cache["blocks"], cache["pos"], dtype,
+            W, batch, cache["blocks"], cache["pos"], False, dtype,
             moe_capacity=b if cfg.is_moe else None)
         return self.logits(W, h[:, -1]), {"blocks": new_blocks,
                                           "pos": cache["pos"] + 1}

@@ -15,8 +15,16 @@ batch (placed by ``launch.sharding``; the attention-block families, inside
 package's pin of the bf16 weights to their masters' sharding, redistributes
 each cast to its master's placements; the gradients come back in their
 parameters' placements and the clip's norm is the global one.
-``ArchConfig.remat`` is not read
-(activations are kept, one layer's attention scores are recomputed).
+
+What the step keeps between its forward and its backward: the forward
+runs with ``train=True``, so with ``ArchConfig.remat`` (every config sets
+it) each block's input alone is kept, one (B, S, D) tensor a block (a
+period's for zamba2 under ``scan_layers``), and the block is recomputed
+in the backward (``pjit_utils.checkpoint``; one more forward of every
+block, a flash launch included), as the JAX package's ``jax.checkpoint``;
+rwkv6's wkv chunks are recomputed inside it whatever ``remat`` says.  Then
+the logits and the loss's own tensors.  Without ``remat`` every block's
+activations are kept.  The evaluation step runs with ``train=False``.
 """
 from __future__ import annotations
 
@@ -111,7 +119,7 @@ def make_grad_fn(model: Model, tc: TrainConfig, param_specs: Any = None
         batch = _on_device(batch, model.device)
         logits, aux = model.forward(
             _cast_weights(params, tc.compute_dtype, param_specs), batch,
-            dtype=tc.compute_dtype)
+            dtype=tc.compute_dtype, train=True)
         loss, metrics = next_token_loss(cfg, logits, batch, aux)
         leaves = tree_leaves(params)
         by_id = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
@@ -154,7 +162,8 @@ def make_eval_step(model: Model, tc: TrainConfig):
     @torch.no_grad()
     def eval_step(params, batch):
         batch = _on_device(batch, model.device)
-        logits, aux = model.forward(params, batch, dtype=tc.compute_dtype)
+        logits, aux = model.forward(params, batch, dtype=tc.compute_dtype,
+                                    train=False)
         _, metrics = next_token_loss(cfg, logits, batch, aux)
         return metrics
 

@@ -17,6 +17,9 @@ argument itself there.
 model's attention core, its RoPE, its masked embedding lookup, its cache
 writes, MoE's routing, the wkv and SSD scans and the causal conv, which
 DTensor's own operators do not cover.
+
+``checkpoint`` recomputes a function in the backward (the blocks under
+``cfg.remat``, the wkv chunks) inside the context it was called in.
 """
 from __future__ import annotations
 
@@ -62,6 +65,31 @@ def activation_sharding(mesh: MeshSpec, batch_axes: Sequence[str],
         yield
     finally:
         _CTX.reset(token)
+
+
+def checkpoint(fn: Callable, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): what
+    it saves for the backward is dropped after the forward and recomputed
+    when the backward first needs it, as the JAX package's
+    ``jax.checkpoint``.  The recompute runs inside the backward, on the
+    card on autograd's own device thread, where this module's context
+    variable is unset: the context of the call is captured here and set
+    again around the recompute, so that ``constrain`` pins and MoE's
+    ``batch_shard_count`` resolve as they did in the forward.  The blocks
+    draw no random numbers, so no RNG state is stashed; the recompute's
+    tensors are checked against the forward's (shapes, dtypes, devices)."""
+    from torch.utils.checkpoint import checkpoint as torch_checkpoint
+    ctx = _CTX.get()
+
+    def run(*a):
+        token = _CTX.set(ctx)
+        try:
+            return fn(*a)
+        finally:
+            _CTX.reset(token)
+
+    return torch_checkpoint(run, *args, use_reentrant=False,
+                            preserve_rng_state=False)
 
 
 def current_batch_axes() -> Optional[Tuple[str, ...]]:

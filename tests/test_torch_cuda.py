@@ -1010,8 +1010,9 @@ def _train_route(dtype, plain):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_train_step_kernel_route_matches_plain_route(dtype):
-    """One train step through the flash kernel (2 launches a forward, 4
-    with the gradient pass and the step) against the plain attention: ce
+    """One train step through the flash kernel (2 launches a forward and 2
+    more in its backward, ``cfg.remat``'s recompute of each block: 8 with
+    the gradient pass and the step) against the plain attention: ce
     and grad_norm within 1e-4 (f32) / 2e-2 (bf16) relative, every gradient
     within 1e-3 / 5e-2 of its leaf's largest |g| (the kernel's forward
     rounding carried through two layers' backward passes)."""
@@ -1020,7 +1021,7 @@ def test_train_step_kernel_route_matches_plain_route(dtype):
     rel, grel = ((1e-4, 1e-3) if dtype == torch.float32 else (2e-2, 5e-2))
     FA.reset_counts()
     km, kg = _train_route(dtype, plain=False)
-    assert FA.COUNTS["flash_attention"] == 4
+    assert FA.COUNTS["flash_attention"] == 8
     pm, pg = _train_route(dtype, plain=True)
     for key in ("ce", "grad_norm"):
         assert abs(float(km[key]) - float(pm[key])) <= rel * abs(
@@ -1028,6 +1029,48 @@ def test_train_step_kernel_route_matches_plain_route(dtype):
     for a, b in zip(tree_leaves(kg), tree_leaves(pg)):
         scale = float(b.float().abs().max())
         assert float((a.float() - b.float()).abs().max()) <= grel * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "rwkv6-7b"])
+def test_remat_recompute_on_the_device_thread(arch):
+    """The gradients of a reduced step with ``cfg.remat`` against the step
+    without, on the card, under a 2 x 2 stand-in ``activation_sharding``
+    context (MoE in 4 routing groups).  The card runs the backward, and
+    so each block's recompute, on autograd's device thread, where the
+    context is set again by ``pjit_utils.checkpoint``: without it MoE's
+    recompute routes in one group and the checkpoint's check raises.  f32:
+    ce and loss within 1e-6 relative, every gradient within 1e-5 of its
+    leaf's max |g| (the expert combine's backward accumulates through
+    atomics on the card, so two runs need not be equal bit for bit)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, TokenStream
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import (TrainConfig, init_train_state,
+                                        make_grad_fn)
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.utils.pjit_utils import activation_sharding
+    dev = _card()
+    cfg = get_config(arch).reduced()
+    batch = next(TokenStream(cfg, DataConfig(seq_len=128,
+                                             batch_size=4)).batches(1))
+    tc = TrainConfig()
+    runs = []
+    for remat in (True, False):
+        model = build_model(dataclasses.replace(cfg, remat=remat),
+                            device=dev, seed=0)
+        params, _ = init_train_state(model, tc)
+        with activation_sharding(make_test_mesh(2, 2), ("data", "model")):
+            runs.append(make_grad_fn(model, tc)(params, batch))
+    (g1, m1), (g0, m0) = runs
+    for key in ("ce", "loss"):
+        assert abs(float(m1[key]) - float(m0[key])) <= 1e-6 * abs(
+            float(m0[key])), key
+    for a, b in zip(tree_leaves(g1), tree_leaves(g0)):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 1e-5 * scale
 
 
 def _sharded_run(dev, engine, d=40, **cfg_kw):

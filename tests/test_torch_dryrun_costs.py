@@ -258,12 +258,18 @@ def test_smollm_train_step_measured_on_a_fake_pod():
     """smollm-360m train_4k at its published widths, depths 1 and 2, each
     as rank 0 of a fake 256-rank group.  Every rank holds one sequence of
     4096 tokens (batch over data x model), so the counted FLOPs are the
-    6 N D of its tokens (every matrix product forward and backward) plus
-    attention as its plain route computes it: the whole S x S score
-    matrix, forward (Q K^T and P V, 4 S d_attn a token), recomputed in the
-    backward and differentiated (8 S d_attn more): 16 S d_attn a token a
-    layer.  The useful ratio is then 6 N D / (6 N D + 16 L S d_attn D),
-    0.519, held within 2% (the norms and the loss add no products)."""
+    6 N D of its tokens (every matrix product forward and backward), the
+    blocks' recompute (``cfg.remat``: each block's forward runs again in
+    the backward, up to the last tensor it saves, so every matrix product
+    of a block but its MLP's down projection, whose output is saved by
+    nothing: 2 (N_blocks - L d d_ff) D), plus attention as its plain
+    route computes it: the whole S x S score matrix, forward (Q K^T and
+    P V, 4 S d_attn a token), once more in the block's recompute, then
+    recomputed in flash's backward and differentiated (12 S d_attn more):
+    20 S d_attn a token a layer.  The useful ratio is then 6 N D /
+    (6 N D + 2 (N_blocks - L d d_ff) D + 20 L S d_attn D), 0.421 (0.519
+    before the recompute), held within 2% (the norms and the loss add no
+    products)."""
     costs = roofline.measure_full_depth("smollm-360m", "train_4k")
     p1, p2 = costs["probes"]["1"], costs["probes"]["2"]
     for p in (p1, p2):
@@ -276,11 +282,15 @@ def test_smollm_train_step_measured_on_a_fake_pod():
     assert costs["coll"] == costs["coll_raw"]
     assert costs["collectives"]["total"] == costs["coll"]
     cfg, _ = resolve_arch_for_shape("smollm-360m", "train_4k")
+    assert cfg.remat and cfg.tie_embeddings
     terms = roofline.roofline_terms("smollm-360m", "train_4k", costs)
     tokens = 4096                      # one sequence a device
     model = terms["model_flops"] / roofline.CHIPS
-    attention = 16 * cfg.n_layers * 4096 * cfg.attn_dim * tokens
-    expected = model / (model + attention)
+    blocks = (roofline.param_counts(cfg)[1]
+              - cfg.vocab_size * cfg.d_model) * tokens
+    recompute = 2 * (blocks - cfg.n_layers * cfg.d_model * cfg.d_ff * tokens)
+    attention = 20 * cfg.n_layers * 4096 * cfg.attn_dim * tokens
+    expected = model / (model + recompute + attention)
     assert abs(terms["useful_ratio"] - expected) <= 0.02 * expected, (
         terms["useful_ratio"], expected)
 

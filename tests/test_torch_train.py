@@ -363,6 +363,7 @@ def jax_and_port_models():
 def test_train_step_matches_jax(jax_and_port_models):
     jcfg, jm, jparams, tree = jax_and_port_models
     cfg = get_config("smollm-360m").reduced()
+    assert cfg.remat and jcfg.remat      # both steps recompute each block
     model = lm_params_from_numpy(tree, cfg, device="cpu")
     batch = next(TokenStream(cfg, DataConfig(seq_len=32, batch_size=4,
                                              seed=2)).batches(1))
