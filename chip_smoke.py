@@ -77,7 +77,12 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    (d) two gloo ranks sharing the card (spawned ``chip_smoke.py
    --sharded-rank``), equal to each other bit for bit and to the local
    engine within the run contract; every ``torch.distributed`` collective
-   counted, with its shape and bytes, a round;
+   counted, with its shape and bytes, a round; (e), between (c) and (d),
+   ``repro_torch.examples.sharded_lm``'s SmolLM-360M train step and a
+   short generate (4 of 32 layers) on a 1 x 1 mesh over the one NCCL
+   rank, without ``gloo_collectives``, held against one device under the
+   mesh-step limits, flash and decode launched, under 30 s (a 1 x 1 mesh
+   carries no real collective: the wiring only);
 7. the LM main path: SmolLM-360M at full width (random weights from seed
    0) through ``repro_torch.serve.Engine.generate``, batch 8, prompt 1024,
    32 new tokens, in f32 and bf16, through the kernels (counters set to 0
@@ -152,7 +157,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    program and a loop run (device kernels and busy share per round);
 11. last (its four extra processes on the card perturb no timing), the
    sharded LM step (``phase_mesh_step``) on a 2 x 2 mesh of four gloo
-   ranks sharing the card (spawned ``chip_smoke.py --mesh-rank``):
+   ranks sharing the card (spawned ``chip_smoke.py --mesh-rank``), through
+   ``repro_torch.examples.sharded_lm``'s runs and checks (its four-card
+   NCCL run is a call of its own, under ``torch.distributed.run``):
    SmolLM-360M at full width (8 of 32 layers), two AdamW steps in bf16
    with f32 masters at B 4 x 512 (batch over ('data', 'model')) and two
    in f32 at B 2 x 512, a generate of 8 tokens at B 8 after a 1024-token
@@ -180,8 +187,8 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    the plan's placements after prefill and every decode step and never
    gathered in a decode step.
 
-It prints the kernel table as JSON, the card line, and last
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Exits nonzero,
+It prints the kernel table as JSON, its own seconds, the card line, and
+last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Exits nonzero,
 printing no result, where CUDA is absent or the package is not beside it.
 """
 from __future__ import annotations
@@ -1368,6 +1375,66 @@ def sharded_ranks_on_the_card(local_vs):
                 history_err=err, W_err=werr, **json.loads(str(got["wire"])))
 
 
+#: ``phase_sharded_path`` (e): SmolLM-360M's (arch, layers) on the 1 x 1
+#: mesh, and the seconds the check may take
+LM_1X1 = ("smollm-360m", 4)
+LM_1X1_BUDGET_S = 30.0
+
+
+def sharded_lm_one_rank():
+    """(e) ``repro_torch.examples.sharded_lm``'s runs on a 1 x 1 mesh over
+    the NCCL group of one rank that this phase made, in this process and
+    without ``gloo_collectives`` (``sharded_lm.collectives_for`` enters
+    nothing on NCCL): SmolLM-360M at LM_1X1's depth, one bf16 AdamW step
+    with f32 masters at B 4 x 512 and a generate of B 2 x 128 + 4 in f32,
+    each held against the same run on one device as the mesh runs are
+    (``train_row``, ``generate_row``), the launch counters set to 0 just
+    before the mesh runs and read just after.  A 1 x 1 mesh carries no
+    real collective: this checks the wiring (the NCCL group under the
+    mesh, DTensor's functional collectives as NCCL gives them, the runs
+    and their checks), not a collective's result; four cards run the
+    example under ``torch.distributed.run`` in a call of their own."""
+    from repro_torch.examples import sharded_lm as S
+    from repro_torch.launch.mesh import device_mesh, make_test_mesh
+    t0 = time.perf_counter()
+    dev = torch.device(DEV)
+    if S.through_gloo(dev):
+        raise AssertionError("the one-rank group carries CUDA tensors "
+                             "through gloo")
+    mesh = make_test_mesh(1, 1)
+    dm = device_mesh(mesh, "cuda")
+    cfg = S.mesh_cfg(*LM_1X1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    one_t = S.mesh_train_run(cfg, bf16, 4, dev, mesh, steps=1)
+    one_g = S.mesh_generate_run(cfg, 2, 128, f32, dev, mesh=mesh, new=4)
+    reset_all_counts()
+    with S.collectives_for(dev):
+        got_t = S.mesh_train_run(cfg, bf16, 4, dev, mesh, dm, steps=1)
+        got_g = S.mesh_generate_run(cfg, 2, 128, f32, dev, one_g["fed"],
+                                    mesh, dm, new=4)
+    counts = read_counts()
+    launches = {k: counts[k] for k in ("flash_attention", "decode_attention")}
+    rows = [S.train_row(cfg.name, cfg, bf16, 4, S.SEQ, one_t, got_t,
+                        [None]),
+            S.generate_row(cfg.name, cfg, f32, 2, 128, 4, one_g, got_g,
+                           got_g.pop("logits"), [None])]
+    wall = time.perf_counter() - t0
+    for _, ok, line in rows:
+        print(f"sharded (e) 1 x 1 NCCL mesh {line}", flush=True)
+        if not ok:
+            raise AssertionError(f"sharded (e): {line}")
+    print(f"sharded (e) 1 x 1 NCCL mesh: gloo_collectives not entered, "
+          f"launches {launches}, {wall:.2f} s (budget "
+          f"{LM_1X1_BUDGET_S:.0f} s)", flush=True)
+    if min(launches.values()) == 0 or wall > LM_1X1_BUDGET_S:
+        raise AssertionError(f"sharded (e): launches {launches}, "
+                             f"{wall:.1f} s")
+    return dict(mesh="1x1", backend=torch.distributed.get_backend_config(),
+                gloo_collectives=False,
+                train=rows[0][0], generate=rows[1][0], launches=launches,
+                wall_s=wall)
+
+
 def phase_sharded_path():
     """The sharded runtime on the card (``Exec(engine="sharded")``, loop
     driver): (a) one NCCL rank at Vehicle Sensor and Human Activity, equal
@@ -1375,8 +1442,10 @@ def phase_sharded_path():
     each round's wire bit for bit against the CPU's cast and the run
     against the same run on the CPU; (c) the cohort path with the sharded
     inner engine at cohort_ref's shape, equal to the local engine bit for
-    bit; (d) two gloo ranks on the one card.  Collectives counted, the
-    walls per round beside the local engine's."""
+    bit; (d) two gloo ranks on the one card; (e) between (c) and (d), the
+    sharded LM step on a 1 x 1 mesh over the NCCL group
+    (``sharded_lm_one_rank``).  Collectives counted, the walls per round
+    beside the local engine's."""
     import torch.distributed as dist
     from repro_torch.api import Exec, Experiment, Method, Problem, Systems
     from repro_torch.cohort import Population, PopulationSpec
@@ -1488,6 +1557,8 @@ def phase_sharded_path():
           f"the local engine's bit for bit; {len(calls)} gathers "
           f"({wire['bytes_per_round']} B a block); wall sharded "
           f"{wall_s:.3f} s local (pre-sampled) {wall_l:.3f} s", flush=True)
+    # (e) the sharded LM step's wiring on the same NCCL group
+    out["lm_1x1"] = sharded_lm_one_rank()
     dist.destroy_process_group()
     # (d) two gloo ranks on the one card
     out["gloo_ranks"] = sharded_ranks_on_the_card(local["vehicle_sensor"])
@@ -3028,6 +3099,7 @@ REMAT_CASE = ("rwkv6-7b", 2, 1, 4096, torch.bfloat16)
 def _remat_step(cfg, b, s, dtype):
     """Step 0's gradients and metrics of ``cfg`` on the card, and the
     step's peak above the parameters and optimizer state (GiB)."""
+    from repro_torch.examples.sharded_lm import mesh_batch
     from repro_torch.models import build_model
     from repro_torch.train.loop import (TrainConfig, init_train_state,
                                         make_grad_fn)
@@ -3036,7 +3108,7 @@ def _remat_step(cfg, b, s, dtype):
                      master_weights=dtype != torch.float32)
     model = build_model(cfg, device=DEV, seed=0)
     params, _ = init_train_state(model, tc)
-    batch = _mesh_batch(cfg, b, s, 7)
+    batch = mesh_batch(cfg, b, s, 7, torch.device(DEV))
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3060,8 +3132,9 @@ def phase_remat():
     gradient leaf within its limit of the leaf's max|g|; both steps'
     peaks above the parameters and optimizer state
     (``max_memory_allocated``) and walls."""
+    from repro_torch.examples.sharded_lm import mesh_cfg
     arch, depth, b, s, dtype = REMAT_CASE
-    cfg = _mesh_cfg(arch, depth)
+    cfg = mesh_cfg(arch, depth)
     if not cfg.remat:
         raise AssertionError(f"{arch} does not set remat")
     g1, m1, peak1, wall1 = _remat_step(cfg, b, s, dtype)
@@ -3156,39 +3229,6 @@ def family_forced_logits(model, batch, forced, dtype, max_len):
     return torch.stack(seen, dim=1)
 
 
-@contextlib.contextmanager
-def moe_routing(record=None, replay=None):
-    """``models.moe.top_k`` (the router's expert choice) appending each
-    call's experts to ``record``, or returning, call by call, the experts
-    in ``replay`` with this route's own probabilities for them.  For the
-    route comparison only: bf16 rounds the router's logits, so a near-tie
-    between two experts can fall either way on the two routes, and a token
-    sent to another expert is another function, not a rounding error."""
-    from repro_torch.models import moe
-    saved = moe.top_k
-    choices = None if replay is None else iter(replay)
-
-    def top_k(probs, k):
-        if choices is not None:
-            idx = next(choices)
-            return probs.gather(-1, idx), idx
-        vals, idx = saved(probs, k)
-        record.append(idx)
-        return vals, idx
-
-    moe.top_k = top_k
-    try:
-        yield
-    finally:
-        moe.top_k = saved
-
-
-def routing_flips(a, b):
-    """Tokens (in all layers and calls) whose expert sets differ."""
-    return sum(int((torch.sort(x, -1)[0] != torch.sort(y, -1)[0]).any(
-        -1).sum()) for x, y in zip(a, b))
-
-
 def check_ring(model, batch, tokens, max_len):
     """mixtral's ring: prefill fills its T slots, each decode step writes
     slot pos % T.  The steps (fed ``tokens``) against one full-sequence
@@ -3238,6 +3278,7 @@ def phase_families():
     (``held_flash_calls``, ``held_decode_calls``); mixtral's wrapped ring
     against the windowed forward.  The card is freed between families."""
     import gc
+    from repro_torch.examples.sharded_lm import moe_routing, routing_flips
     from repro_torch.configs import get_config
     from repro_torch.serve import Engine, ServeConfig
     out = {"flash_attention": 0, "decode_attention": 0, "runs": {}}
@@ -3685,290 +3726,6 @@ MESH_RECURRENT_GEN = (
 MESH_PHASES = {"step": (MESH_TRAIN, MESH_GEN),
                "families": (MESH_FAMILY_TRAIN, MESH_FAMILY_GEN),
                "recurrent": (MESH_RECURRENT_TRAIN, MESH_RECURRENT_GEN)}
-#: mesh step vs one device: ce and grad_norm relative (bf16: ce only, the
-#: train contract's)
-MESH_TRAIN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
-
-
-def _gen_runs(gens):
-    """MESH_GEN's entries one (arch, layers, batch, prompt, dtype) a run."""
-    return [(arch, depth, b, prompt, dtype)
-            for arch, depth, b, prompt, dtypes in gens for dtype in dtypes]
-
-
-def _mesh_cfg(arch, depth):
-    from repro_torch.configs import get_config
-    cfg = get_config(arch)
-    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
-
-
-def _mesh_batch(cfg, b, s, seed):
-    """A batch from ``seed``: tokens (B, S) (audio: (B, S, C)); vlm also its
-    ``frontend_tokens`` image embeddings (B, P, D)."""
-    rng = np.random.default_rng(seed)
-    shape = (b, s, cfg.n_codebooks) if cfg.family == "audio" else (b, s)
-    batch = {"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, shape)).to(DEV, torch.int32)}
-    if cfg.family == "vlm":
-        batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
-            (b, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)).to(DEV)
-    return batch
-
-
-def _mesh_model(cfg, mesh=None, dm=None, mode="train", tc=None):
-    """``cfg`` at full width from seed 0 on the card; on a mesh its
-    parameters placed by the plan (``mode``), the ranks one after another
-    so that only one holds a whole model at a time."""
-    import torch.distributed as dist
-    from repro_torch.launch import sharding as sh
-    from repro_torch.models import build_model
-    from repro_torch.train.loop import init_train_state
-    if dm is None:
-        model = build_model(cfg, device=DEV, seed=0)
-        state = init_train_state(model, tc)[1] if tc else None
-        return model, state
-    model = state = None
-    for r in range(dist.get_world_size()):
-        if r == dist.get_rank():
-            model = build_model(cfg, device=DEV, seed=0)
-            state = init_train_state(model, tc)[1] if tc else None
-            specs = sh.params_shardings(model.tree(), cfg, mesh, mode=mode)
-            model.load_tree(sh.distribute(model.tree(), specs, mesh, dm))
-            if tc:
-                state = sh.distribute(state, sh.opt_shardings(state, specs),
-                                      mesh, dm)
-            torch.cuda.empty_cache()
-        dist.barrier()
-    return model, state
-
-
-def _group_slice(dm, axes, groups, local):
-    """The slice of a call's ``groups`` routing groups that this rank holds
-    ``local`` of: its index over the batch axes, outermost first."""
-    if groups == local:
-        return slice(None)
-    coord, names = dm.get_coordinate(), dm.mesh_dim_names
-    r = 0
-    for a in axes:
-        i = names.index(a)
-        r = r * dm.size(i) + coord[i]
-    return slice(r * local, (r + 1) * local)
-
-
-@contextlib.contextmanager
-def rank_routing(calls, replay, tally, dm, axes):
-    """``models.moe.top_k`` on a rank, held call by call on its own groups
-    against ``calls``, an iterator over the one-device run's choices (each
-    (G, Tg, k)): the
-    tokens whose expert set differs are counted into ``tally``, and with
-    ``replay`` the one-device choices are returned with this rank's own
-    probabilities for them (bf16 rounds the router's logits, so a near-tie
-    can fall either way on the two runs)."""
-    from repro_torch.models import moe
-    saved = moe.top_k
-
-    def top_k(probs, k):
-        vals, idx = saved(probs, k)
-        full = torch.as_tensor(next(calls), device=probs.device).long()
-        want = full[_group_slice(dm, axes, full.shape[0], probs.shape[0])]
-        tally["flips"] += routing_flips([idx], [want])
-        tally["tokens"] += int(np.prod(idx.shape[:-1]))
-        if replay:
-            return probs.gather(-1, want), want
-        return vals, idx
-
-    moe.top_k = top_k
-    try:
-        yield
-    finally:
-        moe.top_k = saved
-
-
-def _routing(cfg, dtype, record, calls, dm, axes, tally):
-    """One device: ``moe_routing`` recording into ``record``; a rank:
-    ``rank_routing`` on ``calls`` (replayed in bf16); nothing for a model
-    without experts."""
-    if not cfg.is_moe:
-        return contextlib.nullcontext()
-    if dm is None:
-        return moe_routing(record=record)
-    return rank_routing(calls, dtype == torch.bfloat16, tally, dm, axes)
-
-
-def mesh_train_run(arch, dtype, b, depth=None, mesh=None, dm=None, ref=None):
-    """MESH_TRAIN_STEPS AdamW steps of ``arch`` (``depth`` layers, None:
-    all) at B ``b`` x MESH_SEQ inside ``activation_sharding`` on ``mesh``
-    (the 2 x 2 test mesh if None) with the batch axes ``pick_batch_axes``
-    picks, so that MoE routes in as many groups on one device as on the
-    mesh: on one device (``dm`` None; MoE's expert choices returned as
-    ``routes``) or through ``build_case``'s step on the mesh (MoE held on
-    ``ref``'s choices, ``rank_routing``).  Per step: ce, grad_norm and wall
-    (s); on the mesh, DTensor's collectives of the first step by kind
-    (``CommDebugMode``, whose dispatch hook slows that step; the later
-    steps run without it)."""
-    from repro_torch.launch import sharding as sh
-    from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.specs import build_case_from_cfg
-    from repro_torch.train.loop import TrainConfig, make_train_step
-    from repro_torch.utils.dist import dtensor_collectives
-    from repro_torch.utils.pjit_utils import activation_sharding
-    tc = TrainConfig(compute_dtype=dtype,
-                     master_weights=dtype != torch.float32)
-    cfg = _mesh_cfg(arch, depth)
-    mesh = mesh or make_test_mesh(2, 2)
-    model, opt = _mesh_model(cfg, mesh, dm, "train", tc)
-    params = model.tree()
-    axes = sh.pick_batch_axes(mesh, b, allow_model=True)
-    if dm is None:
-        step = make_train_step(model, tc)
-    else:
-        step = build_case_from_cfg(cfg, "train_4k", mesh,
-                                   compute_dtype=dtype)["fn"]
-    out = dict(ce=[], grad_norm=[], wall_s=[], collectives={},
-               batch_axes=list(axes))
-    routes, tally = [], dict(flips=0, tokens=0)
-    calls = iter(ref or ())
-    torch.cuda.reset_peak_memory_stats()
-    for i in range(MESH_TRAIN_STEPS):
-        batch = _mesh_batch(cfg, b, MESH_SEQ, 100 + i)
-        if dm is not None:
-            batch = sh.distribute(batch, sh.batch_shardings(batch, mesh,
-                                                            axes), mesh, dm)
-        counted = (dtensor_collectives() if i == 0 and dm is not None
-                   else contextlib.nullcontext((None, None)))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with activation_sharding(mesh, axes, dm), counted as (mode, _), \
-                _routing(cfg, dtype, routes, calls, dm, axes, tally):
-            params, opt, metrics = step(params, opt, batch)
-            torch.cuda.synchronize()
-        out["wall_s"].append(time.perf_counter() - t0)
-        out["ce"].append(float(metrics["ce"]))
-        out["grad_norm"].append(float(metrics["grad_norm"]))
-        if mode is not None:
-            out["collectives"] = {str(k).split(".")[-1]: v for k, v in
-                                  mode.get_comm_counts().items()}
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    if cfg.is_moe:
-        if dm is None:
-            out["routes"] = [r.cpu().numpy().astype(np.int16)
-                             for r in routes]
-        else:
-            out["routing"] = tally
-    del model, params, opt
-    torch.cuda.empty_cache()
-    return out
-
-
-def mesh_generate_run(arch, b, prompt, dtype, fed=None, depth=None,
-                      mesh=None, dm=None, ref=None):
-    """Prefill ``prompt`` tokens (a vlm's after its image embeds), then
-    MESH_NEW - 1 decode steps (fed the tokens ``fed``, else greedy), inside
-    ``activation_sharding`` as ``mesh_train_run``'s: the logits of each
-    step, the tokens fed, the wall, the peak memory, the attention cache's
-    slots and a rank's share of them (none for rwkv6), and MoE's expert
-    choices (one device) or their flips against ``ref`` (the mesh,
-    replayed in bf16); on the mesh, the state and cache leaves whose
-    placements differ from the plan's (``sharding.cache_shardings``)
-    after prefill and after each decode step, and one more decode step
-    after the timed ones with DTensor's collectives recorded (``utils.
-    dist.dtensor_collectives``): their count by kind, the largest
-    all-gather's elements and the all-gathers of a state or cache shard
-    (there must be none): of a leaf itself or a view of it (its storage),
-    or of as many elements as a rank's shard of a layer's k or v cache."""
-    from repro_torch.launch import sharding as sh
-    from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.specs import build_case_from_cfg
-    from repro_torch.utils.dist import dtensor_collectives
-    from repro_torch.utils.pjit_utils import activation_sharding
-    cfg = _mesh_cfg(arch, depth)
-    mesh = mesh or make_test_mesh(2, 2)
-    model, _ = _mesh_model(cfg, mesh, dm, "serve")
-    prefix = cfg.frontend_tokens if cfg.family == "vlm" else 0
-    max_len = prefix + prompt + MESH_NEW + 8
-    batch = _mesh_batch(cfg, b, prompt, 7)
-    params = model.weights(dtype)
-    cache = model.init_cache(b, max_len, dtype=dtype)
-    axes = sh.pick_batch_axes(mesh, b, allow_model=False)
-    if dm is None:
-        prefill = lambda p, x, c: model.prefill(x, c, dtype)  # noqa: E731
-        decode = lambda p, t, c: model.decode_step(t, c, dtype)  # noqa: E731
-    else:
-        cache = sh.distribute(cache, sh.cache_shardings(cache, cfg, mesh),
-                              mesh, dm)
-        batch = sh.distribute(batch, sh.batch_shardings(batch, mesh, axes),
-                              mesh, dm)
-        prefill = build_case_from_cfg(cfg, "prefill_32k", mesh,
-                                      compute_dtype=dtype)["fn"]
-        decode = build_case_from_cfg(cfg, "decode_32k", mesh,
-                                     compute_dtype=dtype)["fn"]
-    c_specs = sh.cache_shardings(cache, cfg, mesh)["blocks"]
-
-    def leaves():
-        return list(sh.leaves_with_specs(cache["blocks"], c_specs))
-
-    def misplaced():
-        return [p for p, t, spec in leaves()
-                if tuple(t.placements) != sh.placements(spec, mesh)]
-
-    logits, sent, counts, largest, cache_gathers = [], [], {}, 0, []
-    k0 = next((t for p, t, _ in leaves() if p.endswith("/k")), None)
-    local = k0.to_local() if dm is not None and k0 is not None else k0
-    shard = int(np.prod(local.shape) if dm is not None and k0 is not None
-                else 0)
-    routes, tally = [], dict(flips=0, tokens=0)
-    placed = []
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with activation_sharding(mesh, axes, dm):
-        with _routing(cfg, dtype, routes, iter(ref or ()), dm, axes, tally):
-            out, cache = prefill(params, batch, cache)
-            for i in range(MESH_NEW):
-                if dm is not None:
-                    placed.append(misplaced())
-                full = (out.full_tensor() if hasattr(out, "full_tensor")
-                        else out)
-                logits.append(full.float().cpu().numpy())
-                if i == MESH_NEW - 1:
-                    break
-                tok = (torch.from_numpy(fed[i]).to(DEV) if fed is not None
-                       else full.argmax(-1).to(torch.int32))
-                sent.append(tok.cpu().numpy())
-                out, cache = decode(params, tok, cache)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        if dm is not None:
-            held = {t.to_local().untyped_storage().data_ptr()
-                    for _, t, _ in leaves()}
-            with dtensor_collectives() as (mode, calls):
-                _, cache = decode(params, tok, cache)
-            placed.append(misplaced())
-            counts = {str(k).split(".")[-1]: v
-                      for k, v in mode.get_comm_counts().items()}
-            gathers = [c for c in calls if "gather" in c.name]
-            largest = max([0] + [int(np.prod(c.shape)) for c in gathers])
-            cache_gathers = [list(c.shape) for c in gathers
-                             if c.storage in held
-                             or int(np.prod(c.shape)) == shard]
-    res = dict(logits=np.stack(logits), fed=np.stack(sent), wall_s=wall,
-               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-               decode_collectives=counts, largest_gather=largest,
-               cache_shard=shard, cache_gathers=cache_gathers,
-               misplaced=sorted({p for step in placed for p in step}),
-               placement_checks=len(placed),
-               cache_slots=(None if k0 is None else
-                            [int(k0.shape[1]), int(local.shape[1])]))
-    if cfg.is_moe:
-        if dm is None:
-            res["routes"] = [r.cpu().numpy().astype(np.int16)
-                             for r in routes]
-        else:
-            res["routing"] = tally
-    del model, params, cache
-    torch.cuda.empty_cache()
-    return res
-
 
 def _routes_of(ref, key):
     """The expert choices saved under ``key``_<call> in ``ref``, in call
@@ -3979,16 +3736,19 @@ def _routes_of(ref, key):
 
 
 def mesh_rank(rank, store, tdir, phase):
-    """One of MESH_RANKS gloo ranks on the one card (``phase_mesh_step``
-    and ``phase_mesh_families``, spawned by ``chip_smoke.py --mesh-rank``):
-    every train and generate run of ``MESH_PHASES[phase]`` on a 2 x 2 mesh,
-    the launch counters set to 0 just before and read just after; rank 0
-    writes the results."""
+    """One of MESH_RANKS gloo ranks on the one card (the mesh phases,
+    spawned by ``chip_smoke.py --mesh-rank``): every train and generate
+    run of ``MESH_PHASES[phase]`` on a 2 x 2 mesh through
+    ``repro_torch.examples.sharded_lm``'s runs, the launch counters set to
+    0 just before and read just after; rank 0 writes the results."""
     from datetime import timedelta
     import torch.distributed as dist
+    from repro_torch.examples.sharded_lm import (gen_runs, mesh_cfg,
+                                                 mesh_generate_run,
+                                                 mesh_train_run)
     from repro_torch.launch.mesh import device_mesh, make_test_mesh
     from repro_torch.utils.dist import gloo_collectives
-    rank = int(rank)
+    rank, dev = int(rank), torch.device(DEV)
     trains, gens = MESH_PHASES[phase]
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", store=dist.FileStore(store, MESH_RANKS),
@@ -4001,12 +3761,14 @@ def mesh_rank(rank, store, tdir, phase):
     train, gen = [], []
     with gloo_collectives():
         for i, (arch, depth, dtype, b) in enumerate(trains):
-            train.append(mesh_train_run(arch, dtype, b, depth, mesh, dm,
-                                        _routes_of(ref, f"routes_train_{i}")))
-        for i, (arch, depth, b, prompt, dtype) in enumerate(_gen_runs(gens)):
+            train.append(mesh_train_run(
+                mesh_cfg(arch, depth), dtype, b, dev, mesh, dm,
+                _routes_of(ref, f"routes_train_{i}"), seq=MESH_SEQ,
+                steps=MESH_TRAIN_STEPS))
+        for i, (arch, depth, b, prompt, dtype) in enumerate(gen_runs(gens)):
             gen.append(mesh_generate_run(
-                arch, b, prompt, dtype, ref[f"fed_{i}"], depth, mesh, dm,
-                _routes_of(ref, f"routes_gen_{i}")))
+                mesh_cfg(arch, depth), b, prompt, dtype, dev, ref[f"fed_{i}"],
+                mesh, dm, _routes_of(ref, f"routes_gen_{i}"), new=MESH_NEW))
     counts = read_counts()
     launches = [None] * MESH_RANKS
     routing = [None] * MESH_RANKS
@@ -4053,36 +3815,35 @@ def _spawn_mesh_ranks(tdir, phase):
         raise AssertionError("\n".join(failed))
 
 
-def _flips(routing, i):
-    """Run ``i``'s routing flips by rank, as "flips/tokens" (None where the
-    run has no experts)."""
-    by_rank = [r[i] for r in routing]
-    if by_rank[0] is None:
-        return None
-    return [f"{t['flips']}/{t['tokens']}" for t in by_rank]
-
-
 def _mesh_phase(phase, label):
     """The runs of ``MESH_PHASES[phase]``: each on one device of the card
     first (inside the same ``activation_sharding`` context, no device
     mesh), then on MESH_RANKS gloo ranks sharing the card, spawned, and
-    held: ce and grad_norm within MESH_TRAIN_RTOL, logits within LOGIT_TOL
-    of max(1, max |logit|), f32 greedy tokens equal, no decode step
-    all-gathering a rank's shard of a layer's k or v cache, flash and
-    decode launched on the ranks.  Prints walls, DTensor's collectives a
-    step, MoE's routing flips by rank, and the launches of every rank."""
+    held as ``sharded_lm.train_row`` and ``generate_row`` hold them: ce
+    and grad_norm within its TRAIN_RTOL, logits within its LOGIT_TOL of
+    max(1, max |logit|), f32 greedy tokens equal; on each rank no decode
+    step all-gathering a state or cache shard and every leaf in the plan's
+    placements (a rank raises otherwise); flash and decode launched on the
+    ranks.  Prints walls, DTensor's collectives a step, MoE's routing
+    flips by rank, and the launches of every rank."""
     import tempfile
+    from repro_torch.examples.sharded_lm import (gen_runs, generate_row,
+                                                 mesh_cfg, mesh_generate_run,
+                                                 mesh_train_run, train_row)
+    dev = torch.device(DEV)
     trains, gens = MESH_PHASES[phase]
-    runs = _gen_runs(gens)
+    runs = gen_runs(gens)
     t0 = time.perf_counter()
     ref_train, ref_gen, saved = [], [], {}
     for i, (arch, depth, dtype, b) in enumerate(trains):
-        one = mesh_train_run(arch, dtype, b, depth)
+        one = mesh_train_run(mesh_cfg(arch, depth), dtype, b, dev,
+                             seq=MESH_SEQ, steps=MESH_TRAIN_STEPS)
         for j, r in enumerate(one.pop("routes", [])):
             saved[f"routes_train_{i}_{j}"] = r
         ref_train.append(one)
     for i, (arch, depth, b, prompt, dtype) in enumerate(runs):
-        one = mesh_generate_run(arch, b, prompt, dtype, depth=depth)
+        one = mesh_generate_run(mesh_cfg(arch, depth), b, prompt, dtype, dev,
+                                new=MESH_NEW)
         saved[f"fed_{i}"] = one["fed"]
         for j, r in enumerate(one.pop("routes", [])):
             saved[f"routes_gen_{i}_{j}"] = r
@@ -4099,86 +3860,25 @@ def _mesh_phase(phase, label):
         logits = dict(np.load(f"{tdir}/mesh.npz"))
     report = dict(ranks=MESH_RANKS, mesh="2x2 (data, model)",
                   one_device_s=ref_s, ranks_s=spawn_s, train=[], generate=[])
+    routing = [[r[i] for r in got["routing"]]
+               for i in range(len(trains) + len(runs))]
     for i, ((arch, depth, dtype, b), one, mesh) in enumerate(
             zip(trains, ref_train, got["train"])):
-        errs = {k: max(abs(m - o) / abs(o) for m, o in zip(mesh[k], one[k]))
-                for k in ("ce", "grad_norm")}
-        name = str(dtype)[6:]
-        flips = _flips(got["routing"], i)
-        ok = errs["ce"] <= MESH_TRAIN_RTOL[dtype] and (
-            dtype != torch.float32
-            or errs["grad_norm"] <= MESH_TRAIN_RTOL[dtype])
-        row = dict(arch=arch, layers=depth, dtype=name, batch=b,
-                   seq=MESH_SEQ, batch_axes=mesh["batch_axes"],
-                   ce=mesh["ce"], ce_one_device=one["ce"], rel_err=errs,
-                   wall_s=mesh["wall_s"], wall_s_one_device=one["wall_s"],
-                   peak_gib=mesh["peak_gib"],
-                   peak_gib_one_device=one["peak_gib"],
-                   collectives=mesh["collectives"], routing_flips=flips)
+        row, ok, line = train_row(arch, mesh_cfg(arch, depth), dtype, b,
+                                  MESH_SEQ, one, mesh, routing[i])
         report["train"].append(row)
-        print(f"{label} train {arch} {name} B{b}x{MESH_SEQ} over "
-              f"{mesh['batch_axes']}: ce {mesh['ce']} (one device "
-              f"{one['ce']}), rel err ce {errs['ce']:.2e} grad_norm "
-              f"{errs['grad_norm']:.2e}, wall/step {mesh['wall_s']} s "
-              f"(one device {one['wall_s']}), peak {mesh['peak_gib']:.2f} "
-              f"GiB a rank (one device {one['peak_gib']:.2f}), "
-              f"collectives/step {mesh['collectives']}"
-              + (f", routing flips by rank {flips}"
-                 + (" (replayed)" if dtype == torch.bfloat16 else "")
-                 if flips else "") + f" {'ok' if ok else 'FAIL'}",
-              flush=True)
+        print(f"{label} {line}", flush=True)
         if not ok:
-            raise AssertionError(f"{label} train {arch} {name}: {errs}")
+            raise AssertionError(f"{label} {line}")
     for i, (arch, depth, b, prompt, dtype) in enumerate(runs):
-        one, mesh = ref_gen[i], got["gen"][i]
-        got_l, want = logits[f"logits_{i}"], one["logits"]
-        scale = max(1.0, float(np.abs(want).max()))
-        steps = [float(np.abs(g - w).max()) / scale
-                 for g, w in zip(got_l, want)]
-        err = max(steps)
-        same = bool((got_l.argmax(-1) == want.argmax(-1)).all())
-        name = str(dtype)[6:]
-        flips = _flips(got["routing"], len(trains) + i)
-        ok = (err <= LOGIT_TOL[dtype] and np.isfinite(got_l).all()
-              and got_l.shape == want.shape
-              and (same or dtype != torch.float32)
-              and not mesh["cache_gathers"] and not mesh["misplaced"]
-              and mesh["placement_checks"] == MESH_NEW + 1)
-        row = dict(arch=arch, layers=depth, dtype=name, batch=b,
-                   prompt=prompt, new=MESH_NEW, logit_err=err,
-                   logit_err_steps=steps, tokens_equal=same,
-                   wall_s=mesh["wall_s"], wall_s_one_device=one["wall_s"],
-                   decode_collectives=mesh["decode_collectives"],
-                   largest_gather=mesh["largest_gather"],
-                   cache_shard=mesh["cache_shard"],
-                   cache_gathers=mesh["cache_gathers"],
-                   misplaced=mesh["misplaced"],
-                   peak_gib=mesh["peak_gib"],
-                   peak_gib_one_device=one["peak_gib"],
-                   cache_slots=mesh["cache_slots"], routing_flips=flips)
+        row, ok, line = generate_row(
+            arch, mesh_cfg(arch, depth), dtype, b, prompt, MESH_NEW,
+            ref_gen[i], got["gen"][i], logits[f"logits_{i}"],
+            routing[len(trains) + i])
         report["generate"].append(row)
-        cut = "" if depth is None else f" ({depth} layers)"
-        print(f"{label} generate {arch}{cut} {name} B{b} prompt {prompt} + "
-              f"{MESH_NEW}: logits err {err:.3e} of max(1, |logit|) "
-              f"(limit {LOGIT_TOL[dtype]}; prefill {steps[0]:.3e}, "
-              f"decode steps up to {max(steps[1:]):.3e}), tokens equal "
-              f"{same}, wall "
-              f"{mesh['wall_s']:.2f} s (one device {one['wall_s']:.2f}),"
-              f" collectives/decode step {mesh['decode_collectives']}, "
-              f"largest all-gather {mesh['largest_gather']} elements, "
-              f"of a state or cache shard (a layer's k or v cache shard: "
-              f"{mesh['cache_shard']}): {len(mesh['cache_gathers'])}, "
-              f"leaves off the plan's placements after "
-              f"{mesh['placement_checks']} checks {mesh['misplaced']}, "
-              f"cache slots / a rank {mesh['cache_slots']}, peak "
-              f"{mesh['peak_gib']:.2f} GiB a rank (one device "
-              f"{one['peak_gib']:.2f})"
-              + (f", routing flips by rank {flips}"
-                 + (" (replayed)" if dtype == torch.bfloat16 else "")
-                 if flips else "") + f" {'ok' if ok else 'FAIL'}",
-              flush=True)
+        print(f"{label} {line}", flush=True)
         if not ok:
-            raise AssertionError(f"{label} generate {arch} {name}")
+            raise AssertionError(f"{label} {line}")
     report["launches"] = {k: sum(c[k] for c in got["launches"])
                           for k in ("flash_attention", "decode_attention")}
     report["launches_by_rank"] = got["launches"]
@@ -4224,9 +3924,10 @@ def phase_mesh_families():
     (MoE in as many groups); in bf16 MoE on the one-device run's expert
     choices, replayed on each rank's groups (``rank_routing``), its own
     flips counted in both dtypes."""
+    from repro_torch.examples.sharded_lm import mesh_cfg
     report = _mesh_phase("families", "mesh families")
     for r in report["generate"]:
-        window = _mesh_cfg(r["arch"], r["layers"]).sliding_window
+        window = mesh_cfg(r["arch"], r["layers"]).sliding_window
         if window is not None and (r["prompt"] != window or r[
                 "cache_slots"] != [window, window // 2]):
             raise AssertionError(f"{r['arch']}: the prompt does not fill "
@@ -4257,6 +3958,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_script = time.perf_counter()
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4305,6 +4007,8 @@ def main() -> int:
                    "personalize": pers["counts"]["flash_attention"],
                    "train": train["launches"],
                    "families": families["flash_attention"],
+                   "sharded_lm_1x1":
+                       sharded["lm_1x1"]["launches"]["flash_attention"],
                    "mesh_step": mesh_step["launches"]["flash_attention"],
                    "mesh_families":
                        mesh_families["launches"]["flash_attention"],
@@ -4314,6 +4018,8 @@ def main() -> int:
     decode_paths = {"lm_generate": sum(lm[dt]["counts"]["decode_attention"]
                                        for dt in ("float32", "bfloat16")),
                     "families": families["decode_attention"],
+                    "sharded_lm_1x1":
+                        sharded["lm_1x1"]["launches"]["decode_attention"],
                     "mesh_step": mesh_step["launches"]["decode_attention"],
                     "mesh_families":
                         mesh_families["launches"]["decode_attention"],
@@ -4369,6 +4075,8 @@ def main() -> int:
     print(json.dumps({"mesh_families": mesh_families}))
     print(json.dumps({"mesh_recurrent": mesh_recurrent}))
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all",
+          flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

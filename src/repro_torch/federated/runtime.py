@@ -57,18 +57,19 @@ def check_group(group, device: torch.device) -> None:
             f"{device.type} backend (gloo on the CPU, nccl on the card)")
 
 
-def _init_default_group() -> None:
+def init_default_group(timeout: timedelta = TIMEOUT) -> None:
     """The process group of a run that found none: the launcher's ranks
     (``torchrun`` sets WORLD_SIZE; each rank has chosen its card), else
     one rank on a ``HashStore``.  Both carry CPU tensors through gloo and,
-    where there is a card, CUDA tensors through NCCL."""
+    where there is a card, CUDA tensors through NCCL; a rank waits
+    ``timeout`` in a collective for the others."""
     backend = ("cpu:gloo,cuda:nccl" if torch.cuda.is_available()
                else "gloo")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        dist.init_process_group(backend, timeout=TIMEOUT)
+        dist.init_process_group(backend, timeout=timeout)
     else:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1, timeout=TIMEOUT)
+                                world_size=1, timeout=timeout)
 
 
 def make_federated_mesh(n_shards: Optional[int] = None, device=None):
@@ -79,7 +80,7 @@ def make_federated_mesh(n_shards: Optional[int] = None, device=None):
     from torch.distributed.device_mesh import init_device_mesh
     dev = resolve_device(device)
     if not dist.is_initialized():
-        _init_default_group()
+        init_default_group()
     world = dist.get_world_size()
     if n_shards is not None and n_shards != world:
         raise ValueError(

@@ -14,9 +14,11 @@ codebook frames, vlm text after image embeddings).  ``--ckpt``
 saves the trained parameters through ``train.checkpoint``.
 ``--dry-run`` writes the plan of ``--shape`` on the production mesh
 (``--multi-pod``: two pods) through ``launch.dryrun.run_case``, held
-against the card's memory unless ``--device cpu``.  The step on a mesh
-is ``launch.specs.build_case``'s ``fn`` (the attention-block families),
-which this launcher does not run: it trains on one device.
+against the card's memory unless ``--device cpu``.  This launcher
+trains on one device.  The step on a mesh, ``launch.specs.build_case``'s
+``fn`` for every family, runs as one SPMD program under
+``torch.distributed.run`` in ``repro_torch.examples.sharded_lm`` (four
+NCCL ranks on four cards, or four gloo ranks on the CPU).
 """
 import argparse
 

@@ -170,14 +170,22 @@ def make_eval_step(model: Model, tc: TrainConfig):
     return eval_step
 
 
-def init_train_state(model: Model, tc: TrainConfig):
-    """(params, opt_state) for training ``model`` from its current weights:
-    the parameters made trainable, with ``master_weights`` the matrices
-    stored in ``tc.compute_dtype`` first (the masters are those values in
-    float32, as the JAX package's ``init`` makes them)."""
+def make_trainable(model: Model, tc: TrainConfig):
+    """``model``'s parameters made trainable, with ``master_weights`` the
+    matrices stored in ``tc.compute_dtype`` first; returns the tree.  On a
+    mesh, call it before the parameters are placed (``sharding.
+    distribute``): a DTensor's ``data`` cannot change its dtype."""
     for p in model.parameters():
         if tc.master_weights and p.dim() >= 2 and p.dtype == torch.float32:
             p.data = p.data.to(tc.compute_dtype)
         p.requires_grad_(True)
-    params = model.tree()
+    return model.tree()
+
+
+def init_train_state(model: Model, tc: TrainConfig):
+    """(params, opt_state) for training ``model`` from its current weights:
+    ``make_trainable``, then the optimizer's state of those parameters (the
+    masters are their values in float32, as the JAX package's ``init``
+    makes them; on a mesh each leaf in its parameter's placements)."""
+    params = make_trainable(model, tc)
     return params, make_optimizer(tc).init(params)
