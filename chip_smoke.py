@@ -5,11 +5,12 @@
 Phases, each of which raises (and the script exits nonzero) on failure:
 
 1. the card's name and power limit, the torch and CUDA versions;
-2. build the three kernels (SDCA, flash attention, decode attention) from
-   ``src/repro_torch/kernels/*/csrc`` with nvcc (one process per source,
-   started together); print registers, spills and shared memory of the
-   SDCA kernel, the CUDA-core and tensor-core flash kernels and the split
-   and merge decode kernels;
+2. build the four kernels (SDCA, flash attention, decode attention, cache
+   attention) from ``src/repro_torch/kernels/*/csrc`` with nvcc (one
+   process per source, started together); print registers, spills and
+   shared memory of the SDCA kernel, the CUDA-core and tensor-core flash
+   kernels, the split and merge decode kernels and the cache attention
+   kernel and its merge;
 3. hold each kernel against its plain PyTorch version on the card: SDCA at
    the MOCHA main path's shapes (Vehicle Sensor: gram mode; Human
    Activity: carry mode), forced modes both ways, budgets that end
@@ -30,6 +31,14 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    lengths (bitwise no influence); and decode's log-sum-exp output
    (``return_lse``) against the plain version's at head_dim 64, 112 and
    128, lengths 0 included (-inf there), the output unchanged bit for bit;
+   cache attention (a segment over a whole cache masked by the positions
+   it holds) at SmolLM-360M's 256-token segment over 1,064 slots (with
+   and without a window), zamba2-7b's 64 tokens over 328 slots at head_dim
+   112 (split over the slots), a mixtral-like window of 4,096, a ragged
+   case and one query at head_dim 256, f32 and bf16, row 0 of each all
+   masked (the mean of V), and its ``return_lse`` against the plain
+   version's (-inf on the all-masked rows, the output unchanged bit for
+   bit);
 4. the MOCHA main path: full-size experiments through
    ``repro_torch.api.Experiment.run`` with ``engine="kernel"``, every launch
    counter set to 0 just before each and read just after, then the same
@@ -119,7 +128,16 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    MoE families' plain route takes the kernel route's expert choices;
    its own are reported), greedy tokens equal in f32; mixtral's decode
    steps past the ring's end against the windowed full-sequence forward
-   over the same 4112 tokens; the card freed between families; then the
+   over the same 4112 tokens; the card freed between families; then a
+   prompt continued over several ``Model.prefill`` calls on one cache
+   (``phase_cache_segments``, under 60 s): SmolLM-360M (32 layers, B 8)
+   with its 1,024-token prompt in four 256-token calls then 32 decode
+   steps, f32 and bf16, against the one-shot prefill and the plain route
+   (f32 tokens equal); mixtral-8x7b (4 of 32 layers, B 1) a 4,096-token
+   prompt then 256 tokens into the wrapped ring, and a 6,144-token prompt
+   into the 4,096-slot ring; zamba2-7b (7 of 81 layers) 256 + 64 tokens
+   at head_dim 112; every cache_attention call held against its plain
+   version on its own inputs, the launches counted; then the
    launch plan (``phase_dryrun``): ``repro_torch.launch.dryrun`` over 10
    archs x 4 shapes x both production meshes against the card's memory,
    per-device GiB by part, and every case that fits the free memory
@@ -148,8 +166,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 9. time flash and decode at SmolLM-360M's shapes and at zamba2-7b's
    head_dim 112 (kernel, plain version,
    ``scaled_dot_product_attention``) beside their bounds, with each
-   kernel's design and share of the bound; prefill ms and decode ms per
-   token of both routes; profile a prefill and decode steps in f32 and
+   kernel's design and share of the bound; cache attention at the
+   segments' shapes beside SDPA with the boolean mask; prefill ms and
+   decode ms per token of both routes; profile a prefill and decode steps in f32 and
    bf16, each attention kernel's device time per call beside its bound;
 10. profile two warm blocks of the cohort path at K 256 on each engine
    (``phase_cohort_profile``), then two rounds of each driver on the local
@@ -163,7 +182,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    SmolLM-360M at full width (8 of 32 layers), two AdamW steps in bf16
    with f32 masters at B 4 x 512 (batch over ('data', 'model')) and two
    in f32 at B 2 x 512, a generate of 8 tokens at B 8 after a 1024-token
-   prompt in f32 and bf16, and granite-3-2b's (20 of 40 layers, heads
+   prompt in f32 and bf16 (once in one prefill call, once in four on one
+   cache, the later three through the cache attention kernel on each
+   rank's T-slice), and granite-3-2b's (20 of 40 layers, heads
    split over 'model') at B 2 x 256 in bf16, each held against the same run on one device of
    the card (ce, grad_norm, logits, tokens), flash and decode launched on
    every rank, no decode step gathering the sequence-sharded cache,
@@ -327,10 +348,11 @@ def ptxas_summary(log):
 
 
 def phase_build():
-    """Build the three sources; print nvcc's log and, for the SDCA kernel,
-    the CUDA-core and tensor-core flash kernels and the split and merge
-    decode kernels, registers, spills and the dynamic shared memory a block
-    asks for.  Fails if the bf16 flash kernel at head_dim 112 (zamba2-7b's
+    """Build the four sources; print nvcc's log and, for the SDCA kernel,
+    the CUDA-core and tensor-core flash kernels, the split and merge
+    decode kernels and the cache attention kernel and its merge,
+    registers, spills and the dynamic shared memory a block asks for.
+    Fails if the bf16 flash kernel at head_dim 112 (zamba2-7b's
     tensor-core instance) spills."""
     import importlib
     from repro_torch.kernels import build
@@ -373,7 +395,8 @@ def phase_build():
                   f"shared memory {', '.join(smem)}", flush=True)
             continue
         for kind in ("flash_kernel", "flash_wgmma_kernel",
-                     "decode_split_kernel", "decode_merge_kernel"):
+                     "decode_split_kernel", "decode_merge_kernel",
+                     "cache_attention_kernel", "cache_merge_kernel"):
             if kind not in fn:
                 continue
             d = int(fn.split(kind)[1].split("Li")[1].split("E")[0])
@@ -382,6 +405,10 @@ def phase_build():
                 smem = flash.flash_attention_shared_bytes(d, dt)
             elif kind == "decode_split_kernel":   # the main path's G, chunk
                 smem = decode.decode_attention_shared_bytes(3, d, 128, dt)
+            elif kind == "cache_attention_kernel":
+                from repro_torch.kernels.cache_attention.cache_attention \
+                    import shared_bytes
+                smem = shared_bytes(d)
             else:
                 smem = 0
             print(f"ptxas [{kind} {'bf16' if dt else 'f32'} D{d}]: "
@@ -1747,18 +1774,20 @@ DEV = "cuda"
 
 
 def reset_all_counts():
+    from repro_torch.kernels import cache_attention as CA
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import sdca as K
-    for mod in (K, FA, DA):
+    for mod in (K, FA, DA, CA):
         mod.reset_counts()
 
 
 def read_counts():
+    from repro_torch.kernels import cache_attention as CA
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import sdca as K
-    return {**K.COUNTS, **FA.COUNTS, **DA.COUNTS}
+    return {**K.COUNTS, **FA.COUNTS, **DA.COUNTS, **CA.COUNTS}
 
 
 def _normal(shape, dtype, seed):
@@ -1782,18 +1811,44 @@ def decode_case(b, t, h, hkv, d, lengths, dtype=torch.float32, seed=0):
                                      device=DEV))
 
 
+def cache_case(b, s, t, h, hkv, d, dtype=torch.float32, window=None,
+               seed=0):
+    """Cache attention inputs as a segment into a used cache makes them:
+    row r's slots hold a shuffle of positions r .. r + T - 1, the last
+    T / 16 of them unwritten (-1); its S queries the positions up to the
+    cache's last written one.  Row 0's queries lie before every position
+    the cache holds: each reads the mean of V over the T slots."""
+    rng = np.random.default_rng(seed)
+    k_pos = np.stack([rng.permutation(t) + r for r in range(b)])
+    k_pos[:, t - t // 16:] = -1
+    top = k_pos.max(1, keepdims=True)
+    q_pos = top - s + 1 + np.arange(s)[None]
+    q_pos[0] = np.arange(s) - s - 1
+    on = lambda a: torch.from_numpy(a.astype(np.int32)).to(DEV)  # noqa
+    return dict(q=_normal((b, s, h, d), dtype, seed),
+                k=_normal((b, t, hkv, d), dtype, seed + 1),
+                v=_normal((b, t, hkv, d), dtype, seed + 2),
+                q_pos=on(q_pos), k_pos=on(k_pos), window=window)
+
+
 def _attn_plain(name, case):
+    from repro_torch.kernels.cache_attention import cache_attention_ref
     from repro_torch.kernels.decode_attention import decode_attention_ref
     from repro_torch.kernels.flash_attention import attention_ref
     if name == "flash":
         return attention_ref(**case)
+    if name == "cache":
+        return cache_attention_ref(**case)
     return decode_attention_ref(case["q"][:, 0], case["k"], case["v"],
                                 case["lengths"])[:, None]
 
 
 def _attn_kernel(name, case):
+    from repro_torch.kernels.cache_attention import cache_mha
     from repro_torch.kernels.decode_attention import decode_mha
     from repro_torch.kernels.flash_attention import flash_mha
+    if name == "cache":
+        return cache_mha(**case)
     return flash_mha(**case) if name == "flash" else decode_mha(**case)
 
 
@@ -1802,7 +1857,12 @@ def plain_attention():
     """The plain versions in place of the kernels in the model's layers, for
     the route comparison only (the port itself never falls back)."""
     from repro_torch.models import layers
-    saved = layers.flash_mha, layers.decode_mha
+    saved = layers.flash_mha, layers.decode_mha, layers.cache_mha
+
+    def cache(q, k, v, q_pos, k_pos, window=None, return_lse=False):
+        from repro_torch.kernels.cache_attention import cache_attention_ref
+        return cache_attention_ref(q, k, v, q_pos, k_pos, window=window,
+                                   return_lse=return_lse)
 
     def flash(q, k, v, causal=True, window=None):
         return _attn_plain("flash", dict(q=q, k=k, v=v, causal=causal,
@@ -1816,11 +1876,12 @@ def plain_attention():
             return out[:, None], lse
         return _attn_plain("decode", dict(q=q, k=k, v=v, lengths=lengths))
 
-    layers.flash_mha, layers.decode_mha = flash, decode
+    layers.flash_mha, layers.decode_mha, layers.cache_mha = (flash, decode,
+                                                             cache)
     try:
         yield
     finally:
-        layers.flash_mha, layers.decode_mha = saved
+        layers.flash_mha, layers.decode_mha, layers.cache_mha = saved
 
 
 def _route(name):
@@ -1990,7 +2051,65 @@ def phase_attention_kernels():
             decode_case(3, 1000, 8, 2, 112, [999, 64, 513], dt))
     check_decode_masking(lens)
     errs[("decode_lse", f32)] = check_decode_lse()
+    # cache attention at the segments' shapes: SmolLM-360M's 256-token
+    # segment over its 1,064-slot cache (no split), zamba2-7b's 64 tokens
+    # over 328 slots at head_dim 112 (a 3-way split), mixtral-8x7b's
+    # window; row 0 all masked in each
+    for dt in (f32, bf16):
+        n = str(dt)[6:]
+        errs[("cache", dt)] = 0.0
+        for label, case in (
+                ("SmolLM B8 S256 T1064 H15/5 D64",
+                 cache_case(BATCH, 256, MAX_LEN, 15, 5, 64, dt)),
+                ("SmolLM window 300", cache_case(BATCH, 256, MAX_LEN, 15,
+                                                 5, 64, dt, window=300)),
+                ("zamba2 B2 S64 T328 H32/32 D112",
+                 cache_case(2, 64, 328, 32, 32, 112, dt)),
+                ("mixtral-like B1 S200 T4096 H32/8 D128 window 4096",
+                 cache_case(1, 200, 4096, 32, 8, 128, dt, window=4096)),
+                ("ragged B3 S37 T77 H6/2 D32", cache_case(3, 37, 77, 6, 2,
+                                                          32, dt)),
+                ("one query B2 S1 T1000 H8/2 D256",
+                 cache_case(2, 1, 1000, 8, 2, 256, dt))):
+            errs[("cache", dt)] = max(errs[("cache", dt)], check_attention(
+                "cache", f"{label} {n}, row 0 all masked", case))
+    errs[("cache_lse", f32)] = check_cache_lse()
     return errs
+
+
+def check_cache_lse():
+    """The cache kernel's log-sum-exp output (``return_lse``, what the
+    mesh's merge weighs the slices by) against the plain version's, f32
+    and bf16, with and without the split: within 2e-5 x max(1, |lse|),
+    -inf exactly on the all-masked rows, the output bitwise the one
+    without ``return_lse``.  Returns the largest share of the
+    tolerance."""
+    from repro_torch.kernels.cache_attention import (cache_attention,
+                                                     cache_attention_ref)
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in ((BATCH, 256, MAX_LEN, 15, 5, 64),
+                      (2, 64, 328, 32, 32, 112)):
+            c = cache_case(*shape, dt)
+            args = (c["q"], c["k"], c["v"], c["q_pos"], c["k_pos"])
+            out, lse = cache_attention(*args, return_lse=True)
+            out0 = cache_attention(*args)
+            _, want = cache_attention_ref(*args, return_lse=True)
+            torch.cuda.synchronize()
+            dead = torch.isneginf(want)
+            share = float(((lse[~dead] - want[~dead]).abs()
+                           / (2e-5 * want[~dead].abs().clamp_min(1.0)))
+                          .max())
+            ok = (torch.equal(torch.isneginf(lse), dead) and share <= 1.0
+                  and torch.equal(out, out0) and bool(dead[0].all()))
+            worst = max(worst, share)
+            print(f"cache kernel lse vs plain [{str(dt)[6:]} {shape}]: "
+                  f"largest share of 2e-5 x max(1, |lse|) {share:.3f}, -inf "
+                  f"rows {int(dead.sum())}, output bitwise unchanged "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"cache lse {dt} {shape}")
+    return worst
 
 
 def check_decode_masking(lens):
@@ -2099,7 +2218,7 @@ def phase_lm_main_path():
         counts = read_counts()
         want = {"flash_attention": cfg.n_layers,
                 "decode_attention": cfg.n_layers * (NEW - 1),
-                "sdca_local_solve": 0}
+                "sdca_local_solve": 0, "cache_attention": 0}
         if counts != want:
             raise AssertionError(f"LM main path launches {counts}, expected "
                                  f"{want}")
@@ -2180,6 +2299,27 @@ def attention_bound(name, case):
     return shape_bound(name, q.dtype, b, q.shape[1], h, k.shape[2], d, live)
 
 
+def cache_bound(case):
+    """Least time for one cache attention call: q, k, v, the positions and
+    o read or written once, or the flops this call's mask needs, 4 D a
+    live (query, head, slot) and 2 D a slot of a query with none (the mean
+    of V), over the dtype's peak, whichever is larger."""
+    from repro_torch.kernels.cache_attention import cache_mask
+    q, k = case["q"], case["k"]
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    es = q.element_size()
+    mask = cache_mask(case["q_pos"], case["k_pos"], case["window"])
+    live = int(mask.sum())
+    dead = int((~mask.any(-1)).sum())
+    nbytes = es * (2 * b * s * h * d + 2 * b * t * hkv * d) + 4 * b * (s + t)
+    flops = h * d * (4 * live + 2 * dead * t)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_OPS[q.dtype]
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops)
+
+
 def shape_bound(name, dtype, b, s, h, hkv, d, live=None):
     """``attention_bound`` from shapes: flash over a causal sequence of s
     (no window); decode over ``live`` cache slots in all, one query each."""
@@ -2198,14 +2338,22 @@ def shape_bound(name, dtype, b, s, h, hkv, d, live=None):
 
 
 def design(name, dtype, d=64):
-    """The kernel a call launches (the decode kernel has one design)."""
+    """The kernel a call launches (decode and cache attention have one
+    design each)."""
     from repro_torch.kernels.flash_attention import design as flash_design
+    if name == "cache":
+        return "cuda-core tiles"
     return flash_design(dtype, d) if name == "flash" else "split+merge"
 
 
 def _sdpa(name, case):
     import torch.nn.functional as F
     q, k, v = (case[x].transpose(1, 2) for x in ("q", "k", "v"))
+    if name == "cache":
+        from repro_torch.kernels.cache_attention import cache_mask
+        mask = cache_mask(case["q_pos"], case["k_pos"], case["window"])
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None],
+                                              enable_gqa=True)
     if name == "flash":
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                               enable_gqa=True)
@@ -2218,7 +2366,9 @@ def _sdpa(name, case):
 
 #: the attention kernels as the profiler names them
 _PROFILE_KERNELS = {"flash": ("flash_wgmma_kernel", "flash_kernel"),
-                    "decode": ("decode_split_kernel", "decode_merge_kernel")}
+                    "decode": ("decode_split_kernel", "decode_merge_kernel"),
+                    "cache": ("cache_attention_kernel",
+                              "cache_merge_kernel")}
 
 
 def _rotating_ms(fn, cases, reps):
@@ -2372,6 +2522,62 @@ def phase_attention_timing(errs):
                       f"({100 * row['device_share_of_bound']:.1f}% of the "
                       f"bound), host enqueue {host_ms:.4f} ms/call "
                       f"[{card_line()}]", flush=True)
+    return rows
+
+
+#: the shapes the cache attention kernel is timed at: (label, B, S, T, H,
+#: Hkv, D, copies cycled through, repeats of kernel and SDPA in turns):
+#: SmolLM-360M's later prompt segments (256 tokens over the 1,064-slot
+#: cache of phase_cache_segments) and zamba2-7b's 64-token continuation
+CACHE_TIMING = {
+    "smollm": ("SmolLM-360M segment, one layer", BATCH, 256, MAX_LEN, 15, 5,
+               64, 4, 1),
+    "zamba2": ("zamba2-7b shared attention segment", 2, 64, 328, 32, 32,
+               112, 8, 5)}
+
+
+def phase_cache_timing(errs):
+    """The cache attention kernel at CACHE_TIMING's shapes (``cache_case``:
+    row 0 all masked), f32 and bf16: kernel, plain version and SDPA with
+    the boolean mask per call by CUDA events (the median of the repeats,
+    kernel and SDPA in turns), the profiler's device time, and the bound
+    (``cache_bound``).  Rows keyed (dtype,) for SmolLM, (dtype, "zamba2")
+    for zamba2."""
+    rows = {}
+    for shape, (label, bb, ss, tt, hh, hkv, dd, n_copies,
+                repeats) in CACHE_TIMING.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            name_dt = str(dtype)[6:]
+            cases = [cache_case(bb, ss, tt, hh, hkv, dd, dtype, seed=10 * i)
+                     for i in range(n_copies)]
+            kernel = lambda c: _attn_kernel("cache", c)  # noqa: E731
+            sdpa = lambda c: _sdpa("cache", c)  # noqa: E731
+            (ms, ms_reads), (lib_ms, lib_reads) = _median_of_turns(
+                (lambda: _rotating_ms(kernel, cases, 50),
+                 lambda: _rotating_ms(sdpa, cases, 50)), repeats)
+            plain_ms = _rotating_ms(lambda c: _attn_plain("cache", c),
+                                    cases, 5)
+            device_ms = _device_ms_per_call(kernel, cases, 50,
+                                            _PROFILE_KERNELS["cache"])
+            b = cache_bound(cases[0])
+            row = dict(design=design("cache", dtype), ms=ms,
+                       ms_reads=ms_reads, library_ms_reads=lib_reads,
+                       plain_ms=plain_ms, library_ms=lib_ms,
+                       device_ms=device_ms,
+                       max_abs_err=errs[("cache", dtype)],
+                       share_of_bound=b["bound_ms"] / ms,
+                       device_share_of_bound=b["bound_ms"] / device_ms, **b)
+            rows[(name_dt,) if shape == "smollm" else (name_dt, shape)] = row
+            print(f"timing [cache {name_dt} ({row['design']}), {label}, B"
+                  f"{bb} S{ss} T{tt} H{hh}/{hkv} D{dd}]: kernel {ms:.4f} "
+                  f"ms/call{_spread(ms_reads)}, plain {plain_ms:.4f} ms, "
+                  f"SDPA with the mask {lib_ms:.4f} ms{_spread(lib_reads)}, "
+                  f"bound {b['bound_ms']:.5f} ms ({b['bound_by']}; "
+                  f"{b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e9:.3f} "
+                  f"GFLOP), kernel at {100 * row['share_of_bound']:.1f}% of "
+                  f"the bound; device time {device_ms:.4f} ms/call "
+                  f"({100 * row['device_share_of_bound']:.1f}% of the "
+                  f"bound) [{card_line()}]", flush=True)
     return rows
 
 
@@ -2788,6 +2994,32 @@ def held_decode_calls(tally, label):
         layers.decode_mha = saved
 
 
+@contextlib.contextmanager
+def held_cache_calls(tally, label):
+    """Every cache_mha call of the model's layers held against
+    ``cache_attention_ref`` on its inputs within ``attention_tolerance``;
+    ``tally`` as in ``held_flash_calls``."""
+    from repro_torch.kernels.cache_attention import cache_attention_ref
+    from repro_torch.kernels.flash_attention import attention_tolerance
+    from repro_torch.models import layers
+    saved = layers.cache_mha
+
+    def cache(q, k, v, q_pos, k_pos, window=None, return_lse=False):
+        out = saved(q, k, v, q_pos, k_pos, window, return_lse=return_lse)
+        with torch.no_grad():
+            ref = cache_attention_ref(q, k, v, q_pos, k_pos, window=window)
+            got = out[0] if return_lse else out
+            _hold_call(tally, label, "cache", got, ref,
+                       attention_tolerance(ref))
+        return out
+
+    layers.cache_mha = cache
+    try:
+        yield
+    finally:
+        layers.cache_mha = saved
+
+
 def phase_personalize():
     """The personalization bridge on SmolLM-360M at full width (random
     weights, seed 0): features through the flash kernel (each call held
@@ -2823,7 +3055,8 @@ def phase_personalize():
     counts = read_counts()
     n_rows = sum(b["tokens"].shape[0] for b in batches)
     want = {"flash_attention": 2 * PERS_TASKS * cfg.n_layers,
-            "sdca_local_solve": bridge.mocha.rounds, "decode_attention": 0}
+            "sdca_local_solve": bridge.mocha.rounds, "decode_attention": 0,
+            "cache_attention": 0}
     if counts != want:
         raise AssertionError(f"personalize launches {counts}, expected "
                              f"{want}")
@@ -3034,7 +3267,8 @@ def phase_train():
         rel_tol, g_tol = TRAIN_TOL[dtype]
         rel, g_rel, within = r["step0"]
         want = {"flash_attention": r["flash_per_step"] * TRAIN_STEPS,
-                "decode_attention": 0, "sdca_local_solve": 0}
+                "decode_attention": 0, "sdca_local_solve": 0,
+                "cache_attention": 0}
         if r["counts"] != want:
             raise AssertionError(f"train {name}: launches {r['counts']}, "
                                  f"expected {want}")
@@ -3292,7 +3526,7 @@ def phase_families():
         calls = attention_calls(model)
         want = {"flash_attention": calls,
                 "decode_attention": calls * (FAMILY_NEW - 1),
-                "sdca_local_solve": 0}
+                "sdca_local_solve": 0, "cache_attention": 0}
         n_params = sum(p.numel() for p in model.parameters())
         cut = ("" if depth is None else
                f", {depth} of {get_config(arch).n_layers} layers")
@@ -3398,6 +3632,236 @@ def phase_families():
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+#: ``phase_cache_segments``: SmolLM-360M's main-path prompt (B 8 x 1024)
+#: in SEG_CALLS prefill calls, then SEG_NEW decode steps; mixtral-8x7b at
+#: the families phase's 4 of 32 layers, B 1: a prompt filling its 4,096-
+#: slot ring then a segment into it, and a prompt 1.5 x the ring; zamba2-7b
+#: at 7 of 81 layers (one period of six mamba2 blocks with the shared
+#: attention block, and a tail block), B 2: a prompt then a continuation
+SEG_CALLS, SEG_NEW = 4, 32
+SEG_MAX_LEN = PROMPT + SEG_NEW + 8
+SEG_RING = ("mixtral-8x7b", 4, 4096, 256, 6144)
+SEG_HYBRID = ("zamba2-7b", 7, 2, 256, 64)
+SEG_BUDGET_S = 60.0
+
+
+def _segmented(model, batch, dtype, calls, max_len, n_new=0, forced=None):
+    """``batch`` in ``calls`` equal prefill calls on one cache, then
+    ``n_new`` decode steps fed ``forced`` (B, n_new) (greedy where None):
+    (the logits of each prefill call and decode step, (B, calls + n_new,
+    ...), the tokens fed)."""
+    from repro_torch.examples.sharded_lm import segment_batch
+    b = batch["tokens"].shape[0]
+    cache = model.init_cache(b, max_len, dtype=dtype)
+    seen, fed = [], []
+    for part in segment_batch(batch, calls):
+        logits, cache = model.prefill(part, cache, dtype=dtype)
+        seen.append(logits)
+    for i in range(n_new):
+        tok = (seen[-1].argmax(-1).to(torch.int32) if forced is None
+               else forced[:, i])
+        fed.append(tok)
+        logits, cache = model.decode_step(tok, cache, dtype=dtype)
+        seen.append(logits)
+    return torch.stack(seen, dim=1), (torch.stack(fed, dim=1) if fed
+                                      else None)
+
+
+def _logit_err(label, got, want, dtype):
+    """max |got - want| over max(1, max |want|), held to LOGIT_TOL."""
+    err = float((got - want).float().abs().max()) / max(
+        1.0, float(want.float().abs().max()))
+    if not (torch.isfinite(got).all() and got.shape == want.shape
+            and err <= LOGIT_TOL[dtype]):
+        raise AssertionError(f"cache segments {label}: logits err {err:.3e} "
+                             f"(limit {LOGIT_TOL[dtype]:g}), shapes "
+                             f"{tuple(got.shape)} {tuple(want.shape)}")
+    return err
+
+
+def _seg_counts(label, counts, want):
+    want = dict({"sdca_local_solve": 0, "flash_attention": 0,
+                 "decode_attention": 0, "cache_attention": 0}, **want)
+    if counts != want:
+        raise AssertionError(f"cache segments {label}: launches {counts}, "
+                             f"expected {want}")
+    return counts
+
+
+def phase_cache_segments():
+    """A prompt continued in several ``Model.prefill`` calls on one cache
+    (the JAX package's multi-turn / chunked prefill), at full width, random
+    weights from seed 0, f32 and bf16; the launch counters set to 0 just
+    before each kernel-route run and read just after, every cache_attention
+    call of it held against its plain version on its own inputs
+    (``held_cache_calls``; the plain version launches nothing).
+    (a) SmolLM-360M, 32 layers, B 8: the 1,024-token prompt as four
+    256-token calls (the first through flash, the others through the cache
+    kernel), then SEG_NEW decode steps: logits against the one-shot
+    prefill's fed the same tokens and against the plain route, f32 greedy
+    tokens equal.  (b) mixtral-8x7b (4 of 32 layers), B 1: a 4,096-token
+    prompt filling the ring, then a 256-token segment into the wrapped
+    ring; (c) a 6,144-token prompt into the 4,096-slot ring; both against
+    the plain route (bf16: on the kernel route's expert choices).  (d)
+    zamba2-7b (7 of 81 layers), B 2: 256 then 64 tokens at head_dim 112,
+    against the one-shot prefill and the plain route."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.examples.sharded_lm import moe_routing
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    out, held, launches = {}, {}, 0
+
+    def kernel_route(label, fn, want):
+        nonlocal launches
+        reset_all_counts()
+        with held_cache_calls(held, label):
+            res = fn()
+        torch.cuda.synchronize()
+        counts = _seg_counts(label, read_counts(), want)
+        launches += counts["cache_attention"]
+        return res, counts
+
+    def plain_route(fn):
+        reset_all_counts()
+        with plain_attention():
+            res = fn()
+        if any(read_counts().values()):
+            raise AssertionError(f"the plain route launched a kernel: "
+                                 f"{read_counts()}")
+        return res
+
+    # (a) SmolLM-360M
+    model = _lm_model()
+    cfg = model.cfg
+    batch = {"tokens": _prompt(cfg.vocab_size)}
+    n = cfg.n_layers
+    for dtype in (f32, torch.bfloat16):
+        name = str(dtype)[6:]
+        (lg_k, fed), counts = kernel_route(
+            f"SmolLM {name}", lambda: _segmented(
+                model, batch, dtype, SEG_CALLS, SEG_MAX_LEN, SEG_NEW),
+            {"flash_attention": n, "cache_attention": (SEG_CALLS - 1) * n,
+             "decode_attention": SEG_NEW * n})
+        lg_1, _ = _segmented(model, batch, dtype, 1, SEG_MAX_LEN, SEG_NEW,
+                             fed)
+        lg_p, _ = plain_route(lambda: _segmented(
+            model, batch, dtype, SEG_CALLS, SEG_MAX_LEN, SEG_NEW, fed))
+        e1 = _logit_err(f"SmolLM {name} vs one-shot", lg_k[:, SEG_CALLS - 1:],
+                        lg_1, dtype)
+        ep = _logit_err(f"SmolLM {name} vs plain", lg_k, lg_p, dtype)
+        same = bool(torch.equal(lg_1[:, :-1].argmax(-1), fed.long()))
+        if dtype == f32 and not same:
+            raise AssertionError("cache segments SmolLM: greedy tokens of "
+                                 "the segmented and one-shot prefill differ")
+        out[f"smollm_{name}"] = dict(counts=counts, err_one_shot=e1,
+                                     err_plain=ep, tokens_equal=same)
+        print(f"cache segments [{ARCH} {name}, B{BATCH} prompt {PROMPT} in "
+              f"{SEG_CALLS} prefill calls + {SEG_NEW} decode steps]: "
+              f"launches {counts}; logits vs the one-shot prefill (fed the "
+              f"same tokens) {e1:.3e}, vs the plain route {ep:.3e} of "
+              f"max(1, |logit|) (limit {LOGIT_TOL[dtype]:g}); greedy tokens "
+              f"equal: {same}", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b), (c) mixtral-8x7b's ring
+    arch, depth, ring, seg, long = SEG_RING
+    model = family_model(arch, depth)
+    cfg = model.cfg
+    if cfg.sliding_window != ring:
+        raise AssertionError(f"{arch}: window {cfg.sliding_window}")
+    full = family_batch(cfg, 1, long)["tokens"]
+    for dtype in (f32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for case, toks, calls, max_len, want in (
+                ("b", full[:, :ring + seg], [ring, seg], ring + seg + 8,
+                 {"flash_attention": depth, "cache_attention": depth}),
+                ("c", full, [long], long + 8, {"cache_attention": depth})):
+            def run(toks=toks, calls=calls, max_len=max_len):
+                cache = model.init_cache(1, max_len, dtype=dtype)
+                seen, at = [], 0
+                for s_ in calls:
+                    lg, cache = model.prefill(
+                        {"tokens": toks[:, at:at + s_]}, cache, dtype=dtype)
+                    seen.append(lg)
+                    at += s_
+                return torch.stack(seen, dim=1)
+            routes = []
+            with moe_routing(record=routes):
+                lg_k, counts = kernel_route(f"{arch} ({case}) {name}", run,
+                                            want)
+            with moe_routing(replay=routes) if dtype != f32 else \
+                    moe_routing(record=[]):
+                lg_p = plain_route(run)
+            err = _logit_err(f"{arch} ({case}) {name}", lg_k, lg_p, dtype)
+            out[f"mixtral_{case}_{name}"] = dict(counts=counts, err=err)
+            what = (f"a {ring}-token prompt filling the {ring}-slot ring, "
+                    f"then {seg} tokens into the wrapped ring"
+                    if case == "b" else
+                    f"a {long}-token prompt into the {ring}-slot ring")
+            print(f"cache segments [{arch} ({depth} of "
+                  f"{get_config(arch).n_layers} layers) {name}, B1 ({case}) "
+                  f"{what}]: launches {counts}; logits kernel vs plain route"
+                  + (" (on the kernel route's experts)" if dtype != f32
+                     else "") + f" {err:.3e} of max(1, |logit|) (limit "
+                  f"{LOGIT_TOL[dtype]:g})", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) zamba2-7b's shared attention at head_dim 112
+    arch, depth, b, first, second = SEG_HYBRID
+    model = family_model(arch, depth)
+    batch = family_batch(model.cfg, b, first + second)
+    calls = model.n_periods
+    max_len = first + second + 8
+    for dtype in (f32, torch.bfloat16):
+        name = str(dtype)[6:]
+
+        def run(parts, dtype=dtype):
+            cache = model.init_cache(b, max_len, dtype=dtype)
+            seen, at = [], 0
+            for s_ in parts:
+                lg, cache = model.prefill(
+                    {"tokens": batch["tokens"][:, at:at + s_]}, cache,
+                    dtype=dtype)
+                seen.append(lg)
+                at += s_
+            return torch.stack(seen, dim=1)
+        lg_k, counts = kernel_route(
+            f"{arch} {name}", lambda: run((first, second)),
+            {"flash_attention": calls, "cache_attention": calls})
+        lg_p = plain_route(lambda: run((first, second)))
+        lg_1 = run((first + second,))
+        ep = _logit_err(f"{arch} {name} vs plain", lg_k, lg_p, dtype)
+        e1 = _logit_err(f"{arch} {name} vs one-shot", lg_k[:, -1:], lg_1,
+                        dtype)
+        out[f"zamba2_{name}"] = dict(counts=counts, err_plain=ep,
+                                     err_one_shot=e1)
+        print(f"cache segments [{arch} ({depth} of "
+              f"{get_config(arch).n_layers} layers, {calls} shared "
+              f"attention call at head_dim {model.cfg.head_dim}) {name}, "
+              f"B{b} {first} + {second} tokens]: launches {counts}; logits "
+              f"vs the plain route {ep:.3e}, the last vs the one-shot "
+              f"prefill {e1:.3e} of max(1, |logit|) (limit "
+              f"{LOGIT_TOL[dtype]:g})", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"cache segments: {launches} cache_attention launches, each call "
+          f"held against its plain version ({held['calls']} calls, largest "
+          f"share of attention_tolerance {held['share']:.3f}); phase "
+          f"{wall:.1f} s (budget {SEG_BUDGET_S:.0f} s) [{card_line()}]",
+          flush=True)
+    if held["calls"] != launches or launches == 0:
+        raise AssertionError(f"cache segments: {held['calls']} calls held, "
+                             f"{launches} launched")
+    return dict(runs=out, launches=launches, held=held, wall_s=wall)
 
 
 DRYRUN_BUDGET_S = 60.0
@@ -3723,9 +4187,23 @@ MESH_RECURRENT_TRAIN = (("rwkv6-7b", 2, torch.bfloat16, 4),
 MESH_RECURRENT_GEN = (
     ("rwkv6-7b", 2, 2, 256, (torch.float32, torch.bfloat16)),
     ("zamba2-7b", 7, 2, 256, (torch.float32, torch.bfloat16)))
-MESH_PHASES = {"step": (MESH_TRAIN, MESH_GEN),
-               "families": (MESH_FAMILY_TRAIN, MESH_FAMILY_GEN),
-               "recurrent": (MESH_RECURRENT_TRAIN, MESH_RECURRENT_GEN)}
+#: (arch, layers run, batch, prompt, segments, dtypes): a generate whose
+#: prompt is prefilled in ``segments`` calls on one cache (the later ones
+#: through the cache attention kernel, each rank on its T-slice)
+MESH_SEGMENTED = (("smollm-360m", 8, 8, 1024, 4,
+                   (torch.float32, torch.bfloat16)),)
+MESH_PHASES = {"step": (MESH_TRAIN, MESH_GEN, MESH_SEGMENTED),
+               "families": (MESH_FAMILY_TRAIN, MESH_FAMILY_GEN, ()),
+               "recurrent": (MESH_RECURRENT_TRAIN, MESH_RECURRENT_GEN, ())}
+
+
+def _gen_list(gens, segmented):
+    """A phase's generates one (arch, layers, batch, prompt, dtype,
+    segments) each: ``gens``' in one prefill call, then ``segmented``'s."""
+    from repro_torch.examples.sharded_lm import gen_runs
+    return ([(*run, 1) for run in gen_runs(gens)]
+            + [(a, d, b, p, dt, n) for a, d, b, p, n, dts in segmented
+               for dt in dts])
 
 def _routes_of(ref, key):
     """The expert choices saved under ``key``_<call> in ``ref``, in call
@@ -3743,13 +4221,12 @@ def mesh_rank(rank, store, tdir, phase):
     0 just before and read just after; rank 0 writes the results."""
     from datetime import timedelta
     import torch.distributed as dist
-    from repro_torch.examples.sharded_lm import (gen_runs, mesh_cfg,
-                                                 mesh_generate_run,
+    from repro_torch.examples.sharded_lm import (mesh_cfg, mesh_generate_run,
                                                  mesh_train_run)
     from repro_torch.launch.mesh import device_mesh, make_test_mesh
     from repro_torch.utils.dist import gloo_collectives
     rank, dev = int(rank), torch.device(DEV)
-    trains, gens = MESH_PHASES[phase]
+    trains, gens, segmented = MESH_PHASES[phase]
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", store=dist.FileStore(store, MESH_RANKS),
                             rank=rank, world_size=MESH_RANKS,
@@ -3765,10 +4242,12 @@ def mesh_rank(rank, store, tdir, phase):
                 mesh_cfg(arch, depth), dtype, b, dev, mesh, dm,
                 _routes_of(ref, f"routes_train_{i}"), seq=MESH_SEQ,
                 steps=MESH_TRAIN_STEPS))
-        for i, (arch, depth, b, prompt, dtype) in enumerate(gen_runs(gens)):
+        for i, (arch, depth, b, prompt, dtype, n) in enumerate(
+                _gen_list(gens, segmented)):
             gen.append(mesh_generate_run(
                 mesh_cfg(arch, depth), b, prompt, dtype, dev, ref[f"fed_{i}"],
-                mesh, dm, _routes_of(ref, f"routes_gen_{i}"), new=MESH_NEW))
+                mesh, dm, _routes_of(ref, f"routes_gen_{i}"), new=MESH_NEW,
+                segments=n))
     counts = read_counts()
     launches = [None] * MESH_RANKS
     routing = [None] * MESH_RANKS
@@ -3823,16 +4302,17 @@ def _mesh_phase(phase, label):
     and grad_norm within its TRAIN_RTOL, logits within its LOGIT_TOL of
     max(1, max |logit|), f32 greedy tokens equal; on each rank no decode
     step all-gathering a state or cache shard and every leaf in the plan's
-    placements (a rank raises otherwise); flash and decode launched on the
-    ranks.  Prints walls, DTensor's collectives a step, MoE's routing
-    flips by rank, and the launches of every rank."""
+    placements (a rank raises otherwise); flash and decode (and, with
+    segmented runs, cache attention) launched on the ranks.  Prints walls,
+    DTensor's collectives a step, MoE's routing flips by rank, and the
+    launches of every rank."""
     import tempfile
-    from repro_torch.examples.sharded_lm import (gen_runs, generate_row,
-                                                 mesh_cfg, mesh_generate_run,
+    from repro_torch.examples.sharded_lm import (generate_row, mesh_cfg,
+                                                 mesh_generate_run,
                                                  mesh_train_run, train_row)
     dev = torch.device(DEV)
-    trains, gens = MESH_PHASES[phase]
-    runs = gen_runs(gens)
+    trains, gens, segmented = MESH_PHASES[phase]
+    runs = _gen_list(gens, segmented)
     t0 = time.perf_counter()
     ref_train, ref_gen, saved = [], [], {}
     for i, (arch, depth, dtype, b) in enumerate(trains):
@@ -3841,9 +4321,9 @@ def _mesh_phase(phase, label):
         for j, r in enumerate(one.pop("routes", [])):
             saved[f"routes_train_{i}_{j}"] = r
         ref_train.append(one)
-    for i, (arch, depth, b, prompt, dtype) in enumerate(runs):
+    for i, (arch, depth, b, prompt, dtype, n) in enumerate(runs):
         one = mesh_generate_run(mesh_cfg(arch, depth), b, prompt, dtype, dev,
-                                new=MESH_NEW)
+                                new=MESH_NEW, segments=n)
         saved[f"fed_{i}"] = one["fed"]
         for j, r in enumerate(one.pop("routes", [])):
             saved[f"routes_gen_{i}_{j}"] = r
@@ -3870,17 +4350,19 @@ def _mesh_phase(phase, label):
         print(f"{label} {line}", flush=True)
         if not ok:
             raise AssertionError(f"{label} {line}")
-    for i, (arch, depth, b, prompt, dtype) in enumerate(runs):
+    for i, (arch, depth, b, prompt, dtype, n) in enumerate(runs):
         row, ok, line = generate_row(
             arch, mesh_cfg(arch, depth), dtype, b, prompt, MESH_NEW,
             ref_gen[i], got["gen"][i], logits[f"logits_{i}"],
-            routing[len(trains) + i])
+            routing[len(trains) + i], segments=n)
         report["generate"].append(row)
         print(f"{label} {line}", flush=True)
         if not ok:
             raise AssertionError(f"{label} {line}")
+    used = ("flash_attention", "decode_attention") + (
+        ("cache_attention",) if segmented else ())
     report["launches"] = {k: sum(c[k] for c in got["launches"])
-                          for k in ("flash_attention", "decode_attention")}
+                          for k in used}
     report["launches_by_rank"] = got["launches"]
     report["wall_s"] = time.perf_counter() - t0
     if min(report["launches"].values()) == 0:
@@ -3903,8 +4385,11 @@ def phase_mesh_step():
     (over ('data',)); one generate (prefill, then MESH_NEW - 1 decode
     steps) of SmolLM-360M at B 8, prompt 1024, f32 and bf16, and of
     granite-3-2b (20 of 40 layers) at B 2, prompt 256, bf16 (heads split
-    over 'model'), the decode steps fed the one-device run's tokens; held
-    as ``_mesh_phase`` holds them."""
+    over 'model'), the decode steps fed the one-device run's tokens; and
+    SmolLM-360M's generate again with its prompt in four prefill calls on
+    one cache (MESH_SEGMENTED: each later call writes into each rank's
+    T-slice and reads it through the cache attention kernel, merged by
+    the slices' log-sum-exps); held as ``_mesh_phase`` holds them."""
     return _mesh_phase("step", "mesh step")
 
 
@@ -3981,11 +4466,13 @@ def main() -> int:
     train = phase_train()
     remat = phase_remat()
     families = phase_families()
+    segments = phase_cache_segments()
     dry = phase_dryrun()
     dry_costs = phase_dryrun_costs()
     shapes = phase_timing(main_runs, errs)
     phase_profile(main_runs)
     attn = phase_attention_timing(attn_errs)
+    cache_rows = phase_cache_timing(attn_errs)
     serve = phase_serve_timing(lm)
     phase_lm_profile(lm)
     cohort["profile"] = phase_cohort_profile()
@@ -4060,6 +4547,23 @@ def main() -> int:
                     "zamba2_bfloat16": attn[(name, "bfloat16", "zamba2")]}))
     # the decode kernel's lse output against its plain version's
     kernels[-1]["lse_max_share"] = attn_errs[("decode_lse", torch.float32)]
+    cache_paths = {"cache_segments": segments["launches"],
+                   "mesh_step": mesh_step["launches"]["cache_attention"]}
+    f32, bf16 = cache_rows[("float32",)], cache_rows[("bfloat16",)]
+    kernels.append(dict(
+        name="cache_attention", route="cuda",
+        source="src/repro_torch/kernels/cache_attention/csrc/"
+               "cache_attention.cu",
+        # no TPU kernel: the JAX package's plain-jnp read over a cache
+        replaces="src/repro/models/layers.py:284",
+        launches=sum(cache_paths.values()), launches_by_path=cache_paths,
+        max_abs_err=max(f32["max_abs_err"], bf16["max_abs_err"]),
+        ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+        bound_by=f32["bound_by"], library_ms=f32["library_ms"],
+        lse_max_share=attn_errs[("cache_lse", torch.float32)],
+        shapes={"float32": f32, "bfloat16": bf16,
+                "zamba2_float32": cache_rows[("float32", "zamba2")],
+                "zamba2_bfloat16": cache_rows[("bfloat16", "zamba2")]}))
     print(json.dumps({"serve_ms": serve}))
     print(json.dumps({"eval_path": eval_path}))
     print(json.dumps({"cohort_path": cohort}))
@@ -4069,6 +4573,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"remat": remat}))
     print(json.dumps({"families": families["runs"]}))
+    print(json.dumps({"cache_segments": segments}))
     print(json.dumps({"dryrun": dry}))
     print(json.dumps({"dryrun_costs": dry_costs}))
     print(json.dumps({"mesh_step": mesh_step}))

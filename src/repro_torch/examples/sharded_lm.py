@@ -17,13 +17,19 @@ and hands the ranks what the mesh runs replay of it: the decode steps'
 tokens and MoE's expert choices.  Then every rank runs the same runs on
 the mesh, with parameters, optimizer state, batch and cache placed by the
 plan (``launch.sharding``), and rank 0 holds them against the one-device
-runs (``TRAIN_RTOL``, ``LOGIT_TOL``: PERF.md §2's mesh-step limits) and
-prints one JSON line: per run its errors, walls, peak GiB a rank and
-DTensor's collectives a step by kind, and the flash and decode launches
-over the ranks.  ``MESH_ONLY`` runs have no one-device reference, since
-no card holds one: their ce is finite and equal on every rank, and each
-rank's parameter and optimizer bytes are the plan's
-(``plan_state_bytes``).  ``examples.sharded_lm_floor`` holds a run's
+runs (``TRAIN_RTOL``, ``LOGIT_TOL``: PERF.md §2's mesh-step limits, but
+for ``FLOOR_ARCHS``' rows whose own rounding floor, measured by rank 0 in
+the same call, is above them: those are held to ``FLOOR_FACTOR`` x the
+floor, ``held_limit``) and prints one JSON line: per run its errors, the
+limit that held it, walls, peak GiB a rank and DTensor's collectives a
+step by kind, and the flash, decode and cache attention launches over the
+ranks.  ``SEGMENTED`` runs prefill their prompt in several calls on one
+cache (the later ones through the cache attention kernel).  Two faults
+(``PLANTS``) planted in rwkv6's f32 generate state after its prefill must
+each miss the limit that holds that row.  ``MESH_ONLY`` runs have no
+one-device reference, since no card holds one: their ce is finite and
+equal on every rank, and each rank's parameter and optimizer bytes are
+the plan's (``plan_state_bytes``).  ``examples.sharded_lm_floor`` holds a run's
 error against the one-device run's own rounding floor.
 
 A rank raises at once where one of its cache or state leaves leaves the
@@ -79,8 +85,24 @@ GEN = (("smollm-360m", None, 8, 1024, (F32, BF16)),
        ("granite-moe-1b-a400m", None, 2, 256, (F32, BF16)),
        ("rwkv6-7b", None, 2, 256, (F32, BF16)),
        ("zamba2-7b", None, 2, 256, (F32, BF16)))
+#: (arch, layers, batch, prompt, segments, dtypes): a generate whose
+#: prompt is prefilled in ``segments`` equal calls on one cache (each after
+#: the first continues it), then decode steps
+SEGMENTED = (("smollm-360m", None, 8, 1024, 4, (F32, BF16)),)
 #: train runs on the mesh alone (no card holds their one-device step)
 MESH_ONLY = (("rwkv6-7b", None, BF16, 4),)
+#: archs whose rows are held to their own rounding floor where it is above
+#: the limits above: random-weight rwkv6-7b amplifies a perturbation of
+#: float32's rounding past them at depth (PERF.md §2, §6).  The floor of a
+#: row is the one-device run against itself with every weight scaled by
+#: (1 + sharded_lm_floor.PERTURB x N(0, 1)), the largest error over
+#: FLOOR_SEEDS, measured in the same call; where it is above the row's
+#: limit the row is held to FLOOR_FACTOR x it (the mesh within 3 x the
+#: largest seed's floor: the probe's prediction, written before the probe
+#: first measured, PERF.md §6)
+FLOOR_ARCHS = ("rwkv6-7b",)
+FLOOR_SEEDS = (1, 2, 3)
+FLOOR_FACTOR = 3.0
 #: ``--local``'s sizes, for the reduced configs (``local_cfg``)
 LOCAL = dict(seq=128, prompt=16, new=4)
 
@@ -89,6 +111,38 @@ def gen_runs(gens):
     """GEN's entries one (arch, layers, batch, prompt, dtype) a run."""
     return [(arch, depth, b, prompt, dtype)
             for arch, depth, b, prompt, dtypes in gens for dtype in dtypes]
+
+
+def held_limit(limit, floor):
+    """(the limit a row is held to, which one): ``limit`` (PERF.md §2's),
+    unless it is under the row's ``floor`` (None where the row has none);
+    then FLOOR_FACTOR x the floor."""
+    if floor is None or floor <= limit:
+        return limit, "PERF.md §2"
+    return FLOOR_FACTOR * floor, f"{FLOOR_FACTOR:g} x floor"
+
+
+def _scale_wkv(cache):
+    """Rank 1's shard of every layer's wkv state scaled by 1 + 1e-3."""
+    import torch.distributed as dist
+    if dist.get_rank() == 1:
+        for state in cache["blocks"]:
+            state["S"].to_local().mul_(1 + 1e-3)
+
+
+def _zero_x_prev(cache):
+    """Rank 1's shard of every layer's token-shift x_prev (the time mix's)
+    zeroed."""
+    import torch.distributed as dist
+    if dist.get_rank() == 1:
+        for state in cache["blocks"]:
+            state["x_prev_tm"].to_local().zero_()
+
+
+#: faults planted in an rwkv6 f32 generate's state after its prefill on
+#: the mesh: each must miss the limit that holds the row
+PLANTS = {"wkv state x (1 + 1e-3) on rank 1": _scale_wkv,
+          "token-shift x_prev zeroed on rank 1": _zero_x_prev}
 
 
 def mesh_cfg(arch, depth=None):
@@ -393,16 +447,19 @@ def mesh_train_run(cfg, dtype, b, dev, mesh=None, dm=None, ref=None, *,
 
 
 def mesh_generate_run(cfg, b, prompt, dtype, dev, fed=None, mesh=None,
-                      dm=None, ref=None, *, new=NEW):
-    """Prefill ``prompt`` tokens (a vlm's after its image embeds), then
-    ``new`` - 1 decode steps (fed the tokens ``fed``, else greedy), inside
+                      dm=None, ref=None, *, new=NEW, segments=1, plant=None):
+    """Prefill ``prompt`` tokens (a vlm's after its image embeds) in
+    ``segments`` equal calls on one cache, then ``new`` - 1 decode steps
+    (fed the tokens ``fed``, else greedy), inside
     ``activation_sharding`` as ``mesh_train_run``'s: the logits of each
     step, the tokens fed, the wall, the peak GiB, the attention cache's
     slots and a rank's share of them (none for rwkv6), and MoE's expert
     choices (one device) or their flips against ``ref`` (the mesh,
-    replayed in bf16).  On the mesh, every state and cache leaf must have
-    the plan's placements (``sharding.cache_shardings``) before prefill,
-    after it and after each decode step, and one more decode step after
+    replayed in bf16).  ``plant``: a fault applied to the cache after the
+    prefill, on the mesh only (``PLANTS``).  On the mesh, every state and
+    cache leaf must have the plan's placements
+    (``sharding.cache_shardings``) before prefill, after each prefill call
+    and after each decode step, and one more decode step after
     the timed ones, with DTensor's collectives recorded (``utils.dist.
     dtensor_collectives``), must all-gather no state or cache shard: of a
     leaf itself or a view of it (its storage), or of as many elements as
@@ -419,7 +476,7 @@ def mesh_generate_run(cfg, b, prompt, dtype, dev, fed=None, mesh=None,
     model, _ = _mesh_model(cfg, dev, mesh, dm, "serve")
     prefix = cfg.frontend_tokens if cfg.family == "vlm" else 0
     max_len = prefix + prompt + new + 8
-    batch = mesh_batch(cfg, b, prompt, 7, dev)
+    parts = segment_batch(mesh_batch(cfg, b, prompt, 7, dev), segments)
     params = model.weights(dtype)
     cache = model.init_cache(b, max_len, dtype=dtype)
     axes = sh.pick_batch_axes(mesh, b, allow_model=False)
@@ -429,8 +486,8 @@ def mesh_generate_run(cfg, b, prompt, dtype, dev, fed=None, mesh=None,
     else:
         cache = sh.distribute(cache, sh.cache_shardings(cache, cfg, mesh),
                               mesh, dm)
-        batch = sh.distribute(batch, sh.batch_shardings(batch, mesh, axes),
-                              mesh, dm)
+        parts = [sh.distribute(p, sh.batch_shardings(p, mesh, axes), mesh,
+                               dm) for p in parts]
         prefill = build_case_from_cfg(cfg, "prefill_32k", mesh,
                                       compute_dtype=dtype)["fn"]
         decode = build_case_from_cfg(cfg, "decode_32k", mesh,
@@ -466,11 +523,16 @@ def mesh_generate_run(cfg, b, prompt, dtype, dev, fed=None, mesh=None,
     t0 = time.perf_counter()
     with activation_sharding(mesh, axes, dm):
         with _routing(cfg, dtype, routes, iter(ref or ()), dm, axes, tally):
-            out, cache = prefill(params, batch, cache)
+            for j, part in enumerate(parts):
+                out, cache = prefill(params, part, cache)
+                if j < segments - 1:
+                    placed(f"after prefill segment {j}")
+                    logits.append(_full(out).float().cpu().numpy())
+            if plant is not None and dm is not None:
+                plant(cache)
             for i in range(new):
                 placed("after prefill" if i == 0 else f"after decode {i}")
-                full = (out.full_tensor() if hasattr(out, "full_tensor")
-                        else out)
+                full = _full(out)
                 logits.append(full.float().cpu().numpy())
                 if i == new - 1:
                     break
@@ -515,6 +577,28 @@ def mesh_generate_run(cfg, b, prompt, dtype, dev, fed=None, mesh=None,
     return res
 
 
+def _full(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def segment_batch(batch, n):
+    """``batch`` as ``n`` prefill calls: its tokens cut into n equal spans
+    along the sequence, a vlm's image embeds in the first alone."""
+    if n == 1:
+        return [batch]
+    s = batch["tokens"].shape[1]
+    if s % n:
+        raise ValueError(f"a prompt of {s} tokens in {n} equal segments")
+    parts = [dict(batch, tokens=batch["tokens"][:, i * s // n:
+                                                 (i + 1) * s // n])
+             for i in range(n)]
+    if "image_embeds" in batch:
+        img = batch["image_embeds"]
+        for part in parts[1:]:
+            part["image_embeds"] = img[:, :0]
+    return parts
+
+
 # ---------------------------------------------------------------------------
 # the runs held against one device
 # ---------------------------------------------------------------------------
@@ -538,18 +622,34 @@ def _logit_errs(got, want):
     return [float(np.abs(g - w).max()) / scale for g, w in zip(got, want)]
 
 
-def train_row(name, cfg, dtype, b, seq, one, mesh, routing):
+def _train_err(errs, dtype):
+    """The error a train run is held by: ce's in bf16 (the train
+    contract's), the larger of ce's and grad_norm's in f32."""
+    return errs["ce"] if dtype != F32 else max(errs["ce"], errs["grad_norm"])
+
+
+def _held(limit, floor):
+    """(limit, which, the words the output line gives them)."""
+    held, which = held_limit(limit, floor)
+    return held, which, (f"held to {held:.3e} ({which}; floor "
+                         + ("not measured" if floor is None
+                            else f"{floor:.3e}") + ")")
+
+
+def train_row(name, cfg, dtype, b, seq, one, mesh, routing, floor=None):
     """A train run on the mesh (rank 0's results) against the same run on
-    one device: (row, ok, line).  ``routing``: each rank's MoE tally."""
+    one device: (row, ok, line).  ``routing``: each rank's MoE tally;
+    ``floor``: the run's floor (``held_limit``), None where not measured."""
     errs = _train_errs(mesh, one)
     flips = _flips(routing)
     dt = str(dtype)[6:]
-    ok = errs["ce"] <= TRAIN_RTOL[dtype] and (
-        dtype != F32 or errs["grad_norm"] <= TRAIN_RTOL[dtype])
+    limit, which, held = _held(TRAIN_RTOL[dtype], floor)
+    ok = _train_err(errs, dtype) <= limit
     row = dict(arch=name, layers=cfg.n_layers, dtype=dt, batch=b, seq=seq,
                batch_axes=mesh["batch_axes"], ce=mesh["ce"],
                ce_one_device=one["ce"], grad_norm=mesh["grad_norm"],
                grad_norm_one_device=one["grad_norm"], rel_err=errs,
+               limit=limit, held_by=which, floor=floor,
                wall_s=mesh["wall_s"],
                wall_s_one_device=one["wall_s"], peak_gib=mesh["peak_gib"],
                peak_gib_one_device=one["peak_gib"],
@@ -557,9 +657,9 @@ def train_row(name, cfg, dtype, b, seq, one, mesh, routing):
     line = (f"train {name} ({cfg.n_layers} layers) {dt} B{b}x{seq} over "
             f"{mesh['batch_axes']}: ce {mesh['ce']} (one device "
             f"{one['ce']}), rel err ce {errs['ce']:.2e} grad_norm "
-            f"{errs['grad_norm']:.2e}, wall/step {mesh['wall_s']} s (one "
-            f"device {one['wall_s']}), peak {_gib(mesh['peak_gib'])} a rank "
-            f"(one device {_gib(one['peak_gib'])}), collectives/step "
+            f"{errs['grad_norm']:.2e} {held}, wall/step {mesh['wall_s']} s "
+            f"(one device {one['wall_s']}), peak {_gib(mesh['peak_gib'])} a "
+            f"rank (one device {_gib(one['peak_gib'])}), collectives/step "
             f"{mesh['collectives']}"
             + (f", routing flips by rank {flips}"
                + (" (replayed)" if dtype == BF16 else "") if flips else "")
@@ -568,21 +668,24 @@ def train_row(name, cfg, dtype, b, seq, one, mesh, routing):
 
 
 def generate_row(name, cfg, dtype, b, prompt, new, one, mesh, logits,
-                 routing):
+                 routing, floor=None, segments=1):
     """A generate on the mesh (rank 0's results and ``logits``) against the
-    same generate on one device: (row, ok, line)."""
+    same generate on one device: (row, ok, line).  ``floor`` as
+    ``train_row``'s; ``segments``: the prefill calls of the prompt."""
     want = one["logits"]
     steps = _logit_errs(logits, want)
     err = max(steps)
     same = bool((logits.argmax(-1) == want.argmax(-1)).all())
     flips = _flips(routing)
     dt = str(dtype)[6:]
-    ok = (err <= LOGIT_TOL[dtype] and bool(np.isfinite(logits).all())
+    limit, which, held = _held(LOGIT_TOL[dtype], floor)
+    ok = (err <= limit and bool(np.isfinite(logits).all())
           and logits.shape == want.shape and (same or dtype != F32)
-          and mesh["placement_checks"] == new + 2)
+          and mesh["placement_checks"] == new + segments + 1)
     row = dict(arch=name, layers=cfg.n_layers, dtype=dt, batch=b,
-               prompt=prompt, new=new, logit_err=err,
-               logit_err_steps=steps, tokens_equal=same,
+               prompt=prompt, new=new, segments=segments, logit_err=err,
+               logit_err_steps=steps, limit=limit, held_by=which,
+               floor=floor, tokens_equal=same,
                wall_s=mesh["wall_s"], wall_s_one_device=one["wall_s"],
                decode_collectives=mesh["decode_collectives"],
                largest_gather=mesh["largest_gather"],
@@ -591,8 +694,9 @@ def generate_row(name, cfg, dtype, b, prompt, new, one, mesh, logits,
                peak_gib=mesh["peak_gib"], peak_gib_one_device=one["peak_gib"],
                cache_slots=mesh["cache_slots"], routing_flips=flips)
     line = (f"generate {name} ({cfg.n_layers} layers) {dt} B{b} prompt "
-            f"{prompt} + {new}: logits err {err:.3e} of max(1, |logit|) "
-            f"(limit {LOGIT_TOL[dtype]}; prefill {steps[0]:.3e}, decode "
+            f"{prompt}" + (f" in {segments} prefill calls" if segments > 1
+                           else "") + f" + {new}: logits err {err:.3e} of "
+            f"max(1, |logit|) {held} (prefill {steps[0]:.3e}, later "
             f"steps up to {max(steps[1:], default=0.0):.3e}), tokens equal "
             f"{same}, wall {mesh['wall_s']:.2f} s (one device "
             f"{one['wall_s']:.2f}), collectives/decode step "
@@ -609,6 +713,20 @@ def generate_row(name, cfg, dtype, b, prompt, new, one, mesh, logits,
     return row, ok, line
 
 
+def planted_row(name, cfg, dtype, fault, one, logits, limit):
+    """A planted fault's generate against the one-device run: it must miss
+    ``limit``, the limit that holds the fault-free row.  (row, ok, line)."""
+    err = max(_logit_errs(logits, one["logits"]))
+    caught = not err <= limit
+    row = dict(arch=name, layers=cfg.n_layers, dtype=str(dtype)[6:],
+               fault=fault, logit_err=err, limit=limit, caught=caught)
+    line = (f"planted {fault}: {name} ({cfg.n_layers} layers) "
+            f"{str(dtype)[6:]} generate logits err {err:.3e} against the "
+            f"row's limit {limit:.3e}: "
+            f"{'caught ok' if caught else 'not caught FAIL'}")
+    return row, caught, line
+
+
 def _gib(x):
     return "not measured" if x is None else f"{x:.2f} GiB"
 
@@ -618,9 +736,10 @@ def _gib(x):
 # ---------------------------------------------------------------------------
 
 def _runs(args):
-    """(train, generate, mesh-only) runs of ``args``: one (label, cfg,
-    dtype, batch) a train run, one (label, cfg, batch, prompt, dtype) a
-    generate, ``--arch`` picking archs."""
+    """(train, generate, segmented, mesh-only) runs of ``args``: one (label,
+    cfg, dtype, batch) a train run, one (label, cfg, batch, prompt, dtype)
+    a generate, one (label, cfg, batch, prompt, dtype, segments) a
+    segmented generate, ``--arch`` picking archs."""
     pick = set(args.arch.split(",")) if args.arch else None
 
     def cfg(arch, depth):
@@ -633,13 +752,43 @@ def _runs(args):
     return ([(a, cfg(a, d), dt, b) for a, d, dt, b in TRAIN if keep(a)],
             [(a, cfg(a, d), b, prompt(p), dt)
              for a, d, b, p, dt in gen_runs(GEN) if keep(a)],
+            [(a, cfg(a, d), b, prompt(p), dt, n)
+             for a, d, b, p, n, dts in SEGMENTED for dt in dts if keep(a)],
             [(a, cfg(a, d), dt, b) for a, d, dt, b in MESH_ONLY if keep(a)])
 
 
+def one_device_floors(trains, gens, ones, dev, mesh, seq, new):
+    """Rank 0: the floor of each train and generate run of FLOOR_ARCHS (None
+    for the others): each seed's one-device run with its weights perturbed
+    (``sharded_lm_floor.perturbed``), a generate fed the unperturbed run's
+    tokens, against the unperturbed run; the largest error of the seeds
+    (``_train_err``; a generate's largest logit error a step)."""
+    from repro_torch.examples.sharded_lm_floor import perturbed
+    floors = dict(train=[], gen=[])
+    for (name, c, dt, b), one in zip(trains, ones["train"]):
+        errs = []
+        for seed in FLOOR_SEEDS if name in FLOOR_ARCHS else ():
+            with perturbed(seed):
+                run = mesh_train_run(c, dt, b, dev, mesh, seq=seq)
+            errs.append(_train_err(_train_errs(run, one), dt))
+        floors["train"].append(max(errs) if errs else None)
+    for (name, c, b, p, dt), one in zip(gens, ones["gen"]):
+        errs = []
+        for seed in FLOOR_SEEDS if name in FLOOR_ARCHS else ():
+            with perturbed(seed):
+                run = mesh_generate_run(c, b, p, dt, dev, one["fed"], mesh,
+                                        new=new)
+            errs.append(max(_logit_errs(run["logits"], one["logits"])))
+        floors["gen"].append(max(errs) if errs else None)
+    return floors
+
+
 def run_all(args, dev):
-    """Every run: rank 0's one-device runs, then the mesh runs on every
-    rank, held on rank 0.  Returns rank 0's report (None elsewhere)."""
+    """Every run: rank 0's one-device runs (and the floors of FLOOR_ARCHS'
+    runs), then the mesh runs on every rank, held on rank 0, then the
+    planted faults.  Returns rank 0's report (None elsewhere)."""
     import torch.distributed as dist
+    from repro_torch.kernels import cache_attention as CA
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.mesh import device_mesh, make_test_mesh
@@ -648,24 +797,33 @@ def run_all(args, dev):
     rank = dist.get_rank()
     seq = LOCAL["seq"] if args.local else SEQ
     new = LOCAL["new"] if args.local else NEW
-    trains, gens, alone = _runs(args)
+    trains, gens, segs, alone = _runs(args)
+    plants = [(i, fault) for i, (name, _, _, _, dt) in enumerate(gens)
+              if name in FLOOR_ARCHS and dt == F32 for fault in PLANTS]
     t0 = time.perf_counter()
-    ones = replay = None
+    ones = replay = floors = None
     if rank == 0:
         ones = dict(train=[mesh_train_run(c, dt, b, dev, mesh, seq=seq)
                            for _, c, dt, b in trains],
                     gen=[mesh_generate_run(c, b, p, dt, dev, mesh=mesh,
                                            new=new)
-                         for _, c, b, p, dt in gens])
+                         for _, c, b, p, dt in gens],
+                    seg=[mesh_generate_run(c, b, p, dt, dev, mesh=mesh,
+                                           new=new, segments=n)
+                         for _, c, b, p, dt, n in segs])
+        floors = one_device_floors(trains, gens, ones, dev, mesh, seq, new)
         replay = dict(train=[r.pop("routes", None) for r in ones["train"]],
                       gen=[(r.pop("fed"), r.pop("routes", None))
-                           for r in ones["gen"]])
+                           for r in ones["gen"]],
+                      seg=[(r.pop("fed"), r.pop("routes", None))
+                           for r in ones["seg"]])
     box = [replay]
     dist.broadcast_object_list(box, src=0, device=torch.device("cpu"))
     replay = box[0]
     one_s = time.perf_counter() - t0
     FA.reset_counts()
     DA.reset_counts()
+    CA.reset_counts()
     t1 = time.perf_counter()
     with collectives_for(dev):
         mtrain = [mesh_train_run(c, dt, b, dev, mesh, dm, replay["train"][i],
@@ -674,10 +832,19 @@ def run_all(args, dev):
         mgen = [mesh_generate_run(c, b, p, dt, dev, replay["gen"][i][0],
                                   mesh, dm, replay["gen"][i][1], new=new)
                 for i, (_, c, b, p, dt) in enumerate(gens)]
+        mseg = [mesh_generate_run(c, b, p, dt, dev, replay["seg"][i][0],
+                                  mesh, dm, replay["seg"][i][1], new=new,
+                                  segments=n)
+                for i, (_, c, b, p, dt, n) in enumerate(segs)]
         malone = [mesh_train_run(c, dt, b, dev, mesh, dm, seq=seq)
                   for _, c, dt, b in alone]
+        launches = {**FA.COUNTS, **DA.COUNTS, **CA.COUNTS}
+        mplant = [mesh_generate_run(gens[i][1], gens[i][2], gens[i][3],
+                                    gens[i][4], dev, replay["gen"][i][0],
+                                    mesh, dm, new=new, plant=PLANTS[fault])
+                  for i, fault in plants]
     mesh_s = time.perf_counter() - t1
-    mine = dict(launches={**FA.COUNTS, **DA.COUNTS},
+    mine = dict(launches=launches,
                 routing=[r.get("routing") for r in mtrain + mgen],
                 alone=[dict(ce=r["ce"], peak_gib=r["peak_gib"],
                             state_bytes=r["state_bytes"])
@@ -691,32 +858,41 @@ def run_all(args, dev):
                           else "cpu"),
                   backend=dist.get_backend_config(),
                   gloo_collectives=through_gloo(dev), local=args.local,
-                  one_device_s=one_s, mesh_s=mesh_s, train=[], generate=[],
-                  mesh_only=[], ok=True)
+                  one_device_s=one_s, mesh_s=mesh_s, floor_seeds=list(
+                      FLOOR_SEEDS), train=[], generate=[], segments=[],
+                  planted=[], mesh_only=[], ok=True)
+
+    def add(key, row, ok, line):
+        report[key].append(row)
+        report["ok"] &= ok
+        print(f"sharded_lm {line}", flush=True)
+
     routing = [[r["routing"][i] for r in every]
                for i in range(len(trains) + len(gens))]
     for i, ((name, c, dt, b), one, got) in enumerate(
             zip(trains, ones["train"], mtrain)):
-        row, ok, line = train_row(name, c, dt, b, seq, one, got, routing[i])
-        report["train"].append(row)
-        report["ok"] &= ok
-        print(f"sharded_lm {line}", flush=True)
+        add("train", *train_row(name, c, dt, b, seq, one, got, routing[i],
+                                floors["train"][i]))
     for i, ((name, c, b, p, dt), one, got) in enumerate(
             zip(gens, ones["gen"], mgen)):
-        row, ok, line = generate_row(name, c, dt, b, p, new, one, got,
-                                     got.pop("logits"),
-                                     routing[len(trains) + i])
-        report["generate"].append(row)
-        report["ok"] &= ok
-        print(f"sharded_lm {line}", flush=True)
+        add("generate", *generate_row(
+            name, c, dt, b, p, new, one, got, got.pop("logits"),
+            routing[len(trains) + i], floors["gen"][i]))
+    for (name, c, b, p, dt, n), one, got in zip(segs, ones["seg"], mseg):
+        add("segments", *generate_row(name, c, dt, b, p, new, one, got,
+                                      got.pop("logits"), [None],
+                                      segments=n))
+    for (i, fault), got in zip(plants, mplant):
+        name, c, _, _, dt = gens[i]
+        add("planted", *planted_row(name, c, dt, fault, ones["gen"][i],
+                                    got["logits"],
+                                    report["generate"][i]["limit"]))
     for i, ((name, c, dt, b), got) in enumerate(zip(alone, malone)):
-        row, ok, line = alone_row(name, c, dt, b, seq, mesh, got,
-                                  [r["alone"][i] for r in every])
-        report["mesh_only"].append(row)
-        report["ok"] &= ok
-        print(f"sharded_lm {line}", flush=True)
+        add("mesh_only", *alone_row(name, c, dt, b, seq, mesh, got,
+                                    [r["alone"][i] for r in every]))
     report["launches"] = {k: sum(r["launches"][k] for r in every)
-                          for k in ("flash_attention", "decode_attention")}
+                          for k in ("flash_attention", "decode_attention",
+                                    "cache_attention")}
     report["launches_by_rank"] = [r["launches"] for r in every]
     return report
 

@@ -29,7 +29,8 @@ _HERE = Path(__file__).resolve().parent
 #: kernel name -> its CUDA source
 SOURCES: Dict[str, Path] = {
     name: _HERE / name / "csrc" / f"{name}.cu"
-    for name in ("sdca", "flash_attention", "decode_attention")}
+    for name in ("sdca", "flash_attention", "decode_attention",
+                 "cache_attention")}
 BUILD_DIR = _HERE / "build"
 INCLUDE_DIR = _HERE / "include"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

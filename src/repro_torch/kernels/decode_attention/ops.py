@@ -2,6 +2,8 @@
 merge of its results over disjoint slices of one cache."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.decode_attention.decode_attention import (
@@ -20,13 +22,22 @@ def decode_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, None]
 
 
-def merge_weights(lse: torch.Tensor) -> torch.Tensor:
+def merge_weights(lse: torch.Tensor,
+                  slots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Weights of n slices' outputs from their log-sum-exps ``lse`` (n, ...):
     ``exp(lse_r - logsumexp_r lse_r)``, exactly 0 for a slice with no live
-    slot (lse -inf), and 0 everywhere where no slice has one."""
+    slot (lse -inf).  Where no slice has one: 0, or with ``slots`` (n,),
+    each slice's share of the slots, slots_r / sum(slots) (the mean over
+    every slot that a cache attention row with no live slot takes, from
+    each slice's mean over its own)."""
     top = torch.logsumexp(lse, dim=0)
-    w = torch.exp(lse - torch.where(torch.isfinite(top), top, 0.0))
-    return torch.where(torch.isfinite(lse), w, 0.0)
+    live = torch.isfinite(top)
+    w = torch.exp(lse - torch.where(live, top, 0.0))
+    w = torch.where(torch.isfinite(lse), w, 0.0)
+    if slots is None:
+        return w
+    share = (slots.float() / slots.float().sum()).to(w.device)
+    return torch.where(live, w, share.view(-1, *([1] * (w.dim() - 1))))
 
 
 def merge_slices(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:

@@ -9,20 +9,22 @@ Conventions, as there:
     sliding-window masks, on the full sequence and on a KV cache;
   * softmax and norms accumulate in float32.
 
-The attention core goes through the port's two Hopper kernels: full
+The attention core goes through the port's three Hopper kernels: full
 sequences and prefill into a fresh cache through ``flash_mha`` (which also
 covers the JAX package's query-chunked branch for long sequences), one token
 over the cache through ``decode_mha`` (also over a sliding window's ring
-buffer).  Caches are updated in place.
+buffer), and a segment that continues a cache (into a non-empty cache, a
+wrapped ring, or longer than the ring) through ``cache_mha``, over every
+slot masked by the position it holds.  Caches are updated in place.
 
 On a mesh (the parameters and the batch are DTensors, inside
 ``utils.pjit_utils.activation_sharding``) the attention of every family
 that has it (dense, MoE, vlm, audio, zamba2's shared block) pins its
 activations where the JAX package does and runs on each rank's local shards
 (``_mesh_attention``): flash over the rank's heads in training and
-prefill, each rank's slice of a sequence-sharded cache in decode (a
-window's ring too), merged by the slices' log-sum-exps; the cache is never
-gathered.
+prefill, each rank's slice of a sequence-sharded cache in decode and in a
+segment that continues a cache (a window's ring too), merged by the
+slices' log-sum-exps; the cache is never gathered.
 """
 from __future__ import annotations
 
@@ -32,17 +34,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.cache_attention import cache_mha
 from repro_torch.kernels.decode_attention import decode_mha, merge_weights
 from repro_torch.kernels.flash_attention import flash_mha
 from repro_torch.utils import pjit_utils as pj
 from repro_torch.utils.pjit_utils import BATCH, constrain
 
 Params = Mapping[str, torch.Tensor]
-
-#: cached attention the port does not run yet
-_CACHED_LATER = ("ROADMAP.md Queue 1 item 14e (a segment into a non-empty "
-                 "cache, a prompt longer than the window's ring)")
-
 
 # ---------------------------------------------------------------------------
 # initializers (normal(0, scale) from an explicit generator)
@@ -202,14 +200,19 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
     (B, T, Hkv, D), "v": ..., "pos": (B, T)}, written in place and
     returned; cache_pos: (B,) write offset of the first new token.  T is
     the full max length, or with a window the ring's min(window, max_len)
-    slots.  Three cached cases run, as the JAX package writes them: S == T
-    (the segment fills the cache), a segment into a fresh cache (every
-    cache_pos 0) and one token (decode).  Without a window a decode step
-    writes slot cache_pos and reads slots < cache_pos + 1; with one it
-    writes slot cache_pos % T of the ring and reads its min(cache_pos + 1,
-    T) written slots.  A ring holds only positions in (p - T, p], all
-    inside the window, so that is exactly the set the JAX package's
-    position mask keeps.  The others raise ``NotImplementedError``.
+    slots.  The cache is written as the JAX package writes it
+    (``_segment_tokens``) and read through one of three kernels.  S == T
+    (the segment fills the cache) and a segment into a fresh cache (every
+    cache_pos 0) attend over the new tokens alone (flash).  One token
+    (decode): without a window it writes slot cache_pos and reads slots <
+    cache_pos + 1; with one it writes slot cache_pos % T of the ring and
+    reads its min(cache_pos + 1, T) written slots.  A ring holds only
+    positions in (p - T, p], all inside the window, so that is exactly the
+    set the JAX package's position mask keeps.  Any other segment (into a
+    non-empty cache, into a wrapped ring, or longer than the ring) reads
+    every slot through ``cache_mha`` under the JAX package's position mask
+    (written, causal, inside the window).  S > T without a window raises
+    ``ValueError``, where the JAX package fails to trace.
     """
     b, s, _ = x.shape
     hd = cfg.head_dim
@@ -260,13 +263,54 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ArchConfig,
             out = decode_mha(q, cache["k"].to(dt), cache["v"].to(dt),
                              lengths)
         else:
-            raise NotImplementedError(
-                f"attention over a cache of {t} slots with {s} new tokens "
-                f"and window {window} is not in the port yet "
-                f"({_CACHED_LATER})")
+            _write_segment(cache["k"], cache["v"], cache["pos"], k, v,
+                           positions, cache_pos, t, 0, window)
+            out = cache_mha(q, cache["k"].to(dt), cache["v"].to(dt),
+                            positions, cache["pos"], window)
 
     out = out.reshape(b, s, cfg.n_heads * hd)
     return out @ params["wo"].to(dt), cache
+
+
+def _segment_tokens(cache_pos: torch.Tensor, s: int, t: int, lo: int,
+                    n: int, window: Optional[int]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where the JAX package writes a segment of ``s`` tokens at
+    ``cache_pos`` (B,) into a cache of ``t`` slots, read from slots lo ..
+    lo + n - 1: (token (B, n), hit (B, n)), the token each slot gets and
+    whether it gets one.  Without a window the segment goes to slots
+    start + i, ``dynamic_update_slice``'s start clamped to [0, t - s] (a
+    segment that would overflow the cache overwrites its last s slots);
+    s > t raises ``ValueError`` (the JAX package fails to trace).  With
+    one token i goes to the ring's slot (cache_pos + i) % t, and of the
+    tokens that share a slot the later one stays (the JAX package's
+    scatter on the CPU), so only the last t are written.  Shapes depend on
+    shapes only (the dry-run's FakeTensors run it)."""
+    if window is None and s > t:
+        raise ValueError(f"a segment of {s} tokens does not fit a cache of "
+                         f"{t} slots without a window")
+    g = lo + torch.arange(n, device=cache_pos.device)[None]
+    if window is None:
+        i = g - cache_pos.long().clamp(0, t - s)[:, None]
+    else:
+        first = max(0, s - t)
+        i = first + (g - cache_pos.long()[:, None] - first) % t
+    return i.clamp(0, s - 1), (i >= 0) & (i < s)
+
+
+@torch.no_grad()
+def _write_segment(ck, cv, cp, k, v, positions, cache_pos, t: int, lo: int,
+                   window: Optional[int]) -> None:
+    """A segment's k, v and positions into slots lo .. lo + n - 1 of a
+    cache of ``t`` slots (the tensors ck, cv, cp: the whole cache, lo 0, or
+    a rank's T-slice of it), in place, where ``_segment_tokens`` puts
+    them."""
+    i, hit = _segment_tokens(cache_pos, k.shape[1], t, lo, ck.shape[1],
+                             window)
+    b = torch.arange(ck.shape[0], device=ck.device)[:, None]
+    for buf, new in ((ck, k), (cv, v), (cp, positions)):
+        keep = hit.view(*hit.shape, *([1] * (buf.dim() - 2)))
+        buf.copy_(torch.where(keep, new[b, i].to(buf.dtype), buf))
 
 
 # ---------------------------------------------------------------------------
@@ -375,34 +419,56 @@ def _write_decode(cache, k, v, positions, slot) -> None:
              positions, slot)
 
 
-def _decode_sharded(q, k_c, v_c, lengths):
-    """One token over a cache sequence-sharded on ``model``: each rank
-    reads its own T-slice (lengths_r = clamp(len - r T_loc, 0, T_loc))
-    and returns its output and log-sum-exp; the ranks' log-sum-exps are
-    all-gathered, each output weighted by exp(lse_r - logsumexp_r lse_r)
-    (a rank with no live slot adds exactly nothing) and the sum
-    all-reduced.  The cache is never gathered."""
+def _write_segment_sharded(cache, k, v, positions, cache_pos,
+                           window: Optional[int]) -> None:
+    """``_write_segment`` on a cache sequence-sharded on ``model``: each
+    rank writes into its own T-slice the segment's tokens whose slots fall
+    there."""
+    r, _ = pj.shard_index(cache["k"], 1)
+    rows = _rows(cache["k"])
+    mesh = cache["k"].device_mesh
+    t_all = cache["k"].shape[1]
+    k, v, positions, cache_pos = (x.redistribute(mesh, rows)
+                                  for x in (k, v, positions, cache_pos))
+
+    def write(ck, cv, cp, kl, vl, pl, sl):
+        _write_segment(ck, cv, cp, kl, vl, pl, sl, t_all, r * ck.shape[1],
+                       window)
+
+    pj.local(write, None, cache["k"], cache["v"], cache["pos"], k, v,
+             positions, cache_pos)
+
+
+def _read_sharded(read, cached, rows_args):
+    """Attention over a cache sequence-sharded on ``model``: each rank runs
+    ``read(first_slot, with_lse, *cached, *rows_args)`` on its own
+    T-slice (the local shards of ``cached``, whose first is the k cache)
+    and its rows of ``rows_args`` (each whole on the rank's rows), which
+    returns the output (B, S, H, D), with ``with_lse`` and its log-sum-exp
+    (B, S, H) too; the ranks' log-sum-exps are all-gathered, each output
+    weighted by ``merge_weights`` (a rank with no live slot adds exactly
+    nothing; a row no rank has one for gets the mean over all slots, as
+    on one device) and the sum all-reduced.  The cache is never
+    gathered."""
     from torch.distributed.tensor import Partial, Replicate, Shard
+    k_c = cached[0]
     r, n = pj.shard_index(k_c, 1)
     mesh = k_c.device_mesh
     rows = _rows(k_c)
-    q = q.redistribute(mesh, rows)
-    lengths = lengths.redistribute(mesh, rows)
+    rows_args = [x.redistribute(mesh, rows) for x in rows_args]
 
-    def read(ql, kl, vl, ll):
-        t = kl.shape[1]
-        lens = (ll.long() - r * t).clamp(0, t)
-        return decode_mha(ql, kl, vl, lens, return_lse=n > 1)
+    def mine(*a):
+        return read(r * a[0].shape[1], n > 1, *a)
 
     if n == 1:
-        return pj.local(read, rows, q, k_c, v_c, lengths)
+        return pj.local(mine, rows, *cached, *rows_args)
     t_dims = {i for i, p in enumerate(k_c.placements)
               if isinstance(p, Shard) and p.dim == 1}
     stacked = tuple(Shard(0) if i in t_dims else
                     (Shard(p.dim + 1) if isinstance(p, Shard) else p)
                     for i, p in enumerate(rows))
-    out, lse = pj.local(lambda *a: tuple(t[None] for t in read(*a)),
-                        (stacked, stacked), q, k_c, v_c, lengths)
+    out, lse = pj.local(lambda *a: tuple(t[None] for t in mine(*a)),
+                        (stacked, stacked), *cached, *rows_args)
     gathered = tuple(Replicate() if i in t_dims else p
                      for i, p in enumerate(stacked))
     lse = lse.redistribute(mesh, gathered)
@@ -410,10 +476,50 @@ def _decode_sharded(q, k_c, v_c, lengths):
                    for i, p in enumerate(rows))
 
     def weigh(ol, ll):
-        w = merge_weights(ll)[r][:, None, :, None]
+        # the ranks' T-slices are equal: the cache is split on T only
+        # where n divides it (``launch.sharding.cache_shardings``)
+        w = merge_weights(ll, torch.ones(n, device=ll.device))[r][..., None]
         return torch.where(w > 0, w * ol[0].float(), 0.0)
 
     return pj.local(weigh, summed, out, lse)
+
+
+def _decode_sharded(q, k_c, v_c, lengths):
+    """One token over a cache sequence-sharded on ``model``
+    (``_read_sharded``): each rank reads its own T-slice, lengths_r =
+    clamp(len - r T_loc, 0, T_loc)."""
+    def read(lo, with_lse, kl, vl, ql, ll):
+        lens = (ll.long() - lo).clamp(0, kl.shape[1])
+        if not with_lse:
+            return decode_mha(ql, kl, vl, lens)
+        out, lse = decode_mha(ql, kl, vl, lens, return_lse=True)
+        return out, lse[:, None]
+
+    return _read_sharded(read, (k_c, v_c), (q, lengths))
+
+
+def _segment_mesh(q, k, v, positions, theta: float, window: Optional[int],
+                  cache, cache_pos):
+    """A segment that continues a cache, on a mesh: the JAX package pins
+    a cached read's cache on ('model' @ seq) with the q heads whole
+    (layers.py:286-298), so this is a decode step's pattern with S queries:
+    each rank writes the tokens whose slots fall in its T-slice and reads
+    its slice through ``cache_mha``, merged by ``_read_sharded``."""
+    q = constrain(q, BATCH, None, None, None)
+    k = constrain(k, BATCH, None, None, None)
+    v = constrain(v, BATCH, None, None, None)
+    positions = constrain(positions, BATCH, None)
+    q, k = _rope_local(q, k, positions, theta)
+    _write_segment_sharded(cache, k, v, positions, cache_pos, window)
+    k_c = constrain(cache["k"].to(q.dtype), BATCH, "model", None, None)
+    v_c = constrain(cache["v"].to(q.dtype), BATCH, "model", None, None)
+    p_c = constrain(cache["pos"], BATCH, "model")
+
+    def read(lo, with_lse, kl, vl, kpl, ql, qpl):
+        return cache_mha(ql, kl, vl, qpl, kpl, window, return_lse=with_lse)
+
+    out = _read_sharded(read, (k_c, v_c, p_c), (q, positions))
+    return constrain(out, BATCH, None, None, None).to(q.dtype)
 
 
 def _mesh_attention(q, k, v, positions, cfg: ArchConfig,
@@ -423,7 +529,8 @@ def _mesh_attention(q, k, v, positions, cfg: ArchConfig,
     D) before the output projection.  The cached cases are the one-device
     path's: with a window a decode step writes slot cache_pos % T of the
     ring and reads its min(cache_pos + 1, T) written slots, each rank its
-    own T-slice of them."""
+    own T-slice of them; a segment that continues a cache goes through
+    ``_segment_mesh``."""
     theta = cfg.rope_theta
     s = q.shape[1]
     if cache is not None and s == 1:
@@ -447,10 +554,8 @@ def _mesh_attention(q, k, v, positions, cfg: ArchConfig,
         t = cache["k"].shape[1]
         if not (s == t or (s < t and bool(
                 (cache_pos.full_tensor() == 0).all()))):
-            raise NotImplementedError(
-                f"attention over a cache of {t} slots with {s} new tokens "
-                f"and window {window} is not in the port yet "
-                f"({_CACHED_LATER})")
+            return _segment_mesh(q, k, v, positions, theta, window, cache,
+                                 cache_pos)
     q = constrain(q, BATCH, None, "model", None)
     k = constrain(k, BATCH, None, "model", None)
     v = constrain(v, BATCH, None, "model", None)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.core.subproblem import row_norms
+from repro_torch.kernels import cache_attention as CA
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import sdca as K
@@ -508,6 +509,131 @@ def test_attention_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         DA.decode_attention(q[:, 0], cache, cache,
                             torch.ones(1, dtype=torch.int32, device=dev))
+
+
+# -- cache attention: a segment over the whole cache ----------------------
+
+def _cache_case(b, s, t, h, hkv, d, dev, dtype, seed=0):
+    """q at positions up to the cache's newest, the cache's slots a
+    shuffle of positions with the last T / 16 unwritten (-1); row 0's
+    queries before every position the cache holds (all masked)."""
+    rng = np.random.default_rng(seed)
+    k_pos = np.stack([rng.permutation(t) + r for r in range(b)])
+    k_pos[:, t - t // 16:] = -1
+    q_pos = k_pos.max(1, keepdims=True) - s + 1 + np.arange(s)[None]
+    q_pos[0] = np.arange(s) - s - 1
+    pos = [torch.from_numpy(a.astype(np.int32)).to(dev)
+           for a in (q_pos, k_pos)]
+    return (_normal((b, s, h, d), dev, dtype, seed),
+            _normal((b, t, hkv, d), dev, dtype, seed + 1),
+            _normal((b, t, hkv, d), dev, dtype, seed + 2), *pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 112, 128, 256])
+@pytest.mark.parametrize("window", [None, 40])
+def test_cache_kernel_matches_plain_version(d, dtype, window):
+    """Every head_dim and dtype, with and without a window, GQA, a ragged
+    S and T, a split over T (B 1, one kv head: few blocks) and not (B 4),
+    row 0 all masked (the mean of V over every slot)."""
+    dev = _card()
+    for b, s, t, h, hkv in ((4, 70, 333, 6, 2), (2, 3, 500, 4, 1)):
+        q, k, v, qp, kp = _cache_case(b, s, t, h, hkv, d, dev, dtype)
+        CA.reset_counts()
+        out = CA.cache_mha(q, k, v, qp, kp, window)
+        torch.cuda.synchronize()
+        assert CA.COUNTS["cache_attention"] == 1
+        want = CA.cache_attention_ref(q, k, v, qp, kp, window)
+        _close(out, want)
+        mean = v[0].float().mean(0).repeat_interleave(h // hkv, 0)
+        _close(out[0], mean.expand(s, h, d).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 70, 333, 6, 2, 64),
+                                   (2, 3, 500, 4, 1, 112)])
+def test_cache_kernel_lse_matches_plain_version(shape, dtype):
+    """``return_lse``: each row's log-sum-exp within 2e-5 x max(1, |lse|)
+    of the plain version's, -inf exactly on the all-masked rows, the
+    output bitwise the call's without it (split over T and not)."""
+    dev = _card()
+    q, k, v, qp, kp = _cache_case(*shape[:5], shape[5], dev, dtype)
+    out, lse = CA.cache_attention(q, k, v, qp, kp, return_lse=True)
+    plain = CA.cache_attention(q, k, v, qp, kp)
+    _, want = CA.cache_attention_ref(q, k, v, qp, kp, return_lse=True)
+    torch.cuda.synchronize()
+    dead = torch.isneginf(want)
+    assert dead[0].all() and not dead[1:].any()
+    assert torch.equal(torch.isneginf(lse), dead)
+    err = (lse[~dead] - want[~dead]).abs()
+    assert bool((err <= 2e-5 * want[~dead].abs().clamp_min(1.0)).all())
+    assert torch.equal(out, plain)
+
+
+@pytest.mark.cuda
+def test_cache_kernel_slices_merge_into_the_whole_cache():
+    """The mesh's merge on one card: the cache in two halves, each read
+    with ``return_lse`` and merged by ``merge_weights`` with the halves'
+    slots, within the tolerance of one read of the whole cache, the
+    all-masked row (the mean over both halves) included."""
+    dev = _card()
+    q, k, v, qp, kp = _cache_case(3, 40, 512, 8, 2, 64, dev, torch.float32)
+    want = CA.cache_mha(q, k, v, qp, kp)
+    halves = [CA.cache_mha(q, k[:, i:i + 256].contiguous(),
+                           v[:, i:i + 256].contiguous(), qp,
+                           kp[:, i:i + 256].contiguous(), return_lse=True)
+              for i in (0, 256)]
+    w = DA.merge_weights(torch.stack([lse for _, lse in halves]),
+                         torch.tensor([256, 256]))
+    got = sum(w[i][..., None] * halves[i][0] for i in range(2))
+    torch.cuda.synchronize()
+    _close(got, want)
+
+
+@pytest.mark.cuda
+def test_a_planted_wrong_mask_fails_the_plain_version(tmp_path,
+                                                      monkeypatch):
+    """The kernel built from its source with the causal test ``k_pos <=
+    q_pos`` planted as ``<`` (each query loses its own slot) must miss
+    the plain version's tolerance: the comparison sees the mask."""
+    import ctypes
+    from pathlib import Path
+    from repro_torch.kernels import build
+    from repro_torch.kernels.cache_attention import cache_attention as CK
+    dev = _card()
+    src = Path(build.SOURCES["cache_attention"]).read_text()
+    assert src.count("kpos <= qpos") == 1
+    planted = tmp_path / "cache_attention.cu"
+    planted.write_text(src.replace("kpos <= qpos", "kpos < qpos"))
+    lib = ctypes.CDLL(str(build.build([planted])[planted]))
+    CK._bind(lib)
+    q, k, v, qp, kp = _cache_case(2, 40, 200, 4, 2, 64, dev, torch.float32)
+    kp[:, :40] = qp                   # each query's own position is cached
+    want = CA.cache_attention_ref(q, k, v, qp, kp)
+    _close(CA.cache_attention(q, k, v, qp, kp), want)
+    monkeypatch.setattr(CK, "load", lambda name, bind: lib)
+    got = CA.cache_attention(q, k, v, qp, kp)
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        _close(got, want)
+
+
+@pytest.mark.cuda
+def test_cache_wrapper_checks_its_inputs():
+    dev = _card()
+    q, k, v, qp, kp = _cache_case(1, 8, 64, 4, 2, 64, dev, torch.float32)
+    with pytest.raises(TypeError):
+        CA.cache_attention(q, k, v, qp, kp.long())
+    with pytest.raises(ValueError, match="kv heads"):
+        CA.cache_attention(_normal((1, 8, 3, 64), dev), k, v, qp, kp)
+    with pytest.raises(ValueError, match="head_dim"):
+        CA.cache_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                           v[..., :48].contiguous(), qp, kp)
+    with pytest.raises(ValueError, match="contiguous"):
+        CA.cache_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                           v, qp, kp)
 
 
 # -- the other model families on the card ----------------------------------

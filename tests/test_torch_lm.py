@@ -169,23 +169,6 @@ def test_attention_apply_prefill_then_decode():
     np.testing.assert_array_equal(ct["pos"].numpy(), np.asarray(cj["pos"]))
 
 
-def test_attention_apply_unported_cache_cases_raise():
-    """What is left of ROADMAP item 14e: a segment into a non-empty cache,
-    and a prompt longer than the window's ring."""
-    jcfg, cfg = _cfgs()
-    _, pt = _attn_params(jcfg)
-    cache = L.init_attn_cache(cfg, 1, 16, dtype=torch.float32)
-    x = torch.zeros((1, 3, cfg.d_model))
-    pos = torch.arange(5, 8, dtype=torch.int32)[None]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        L.attention_apply(pt, x, cfg, pos, cache=cache,
-                          cache_pos=torch.tensor([5], dtype=torch.int32))
-    ring = L.init_attn_cache(cfg, 1, 16, window=2, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="longer than the window"):
-        L.attention_apply(pt, x, cfg, pos - 5, window=2, cache=ring,
-                          cache_pos=torch.tensor([0], dtype=torch.int32))
-
-
 @pytest.mark.parametrize("prefill", [1, 3, 4])
 def test_attention_apply_ring_decode_matches_jax(prefill):
     """A ring of window 4 slots: a prefill of 1, 3 or 4 tokens (4 fills

@@ -91,7 +91,8 @@ def test_example_runs_on_a_gloo_mesh(report):
     assert len(report["generate"]) == len(GEN)
     # the CPU's wrappers run their plain versions and count no launch
     assert report["launches"] == {"flash_attention": 0,
-                                  "decode_attention": 0}
+                                  "decode_attention": 0,
+                                  "cache_attention": 0}
 
 
 @pytest.mark.parametrize("arch,dtype", TRAIN)
@@ -119,6 +120,45 @@ def test_generate_matches_one_device(report, arch, dtype):
     assert sum(r["decode_collectives"].values()) > 0
     if arch != "rwkv6-7b":          # an attention cache, T over 'model'
         assert r["cache_slots"][1] * 2 == r["cache_slots"][0]
+
+
+def test_rows_name_the_limit_that_held_them(report):
+    """rwkv6's rows carry their floor (three perturbed one-device runs);
+    at the reduced size it is under PERF.md §2's limit, which holds them,
+    as it holds every other row."""
+    for r in report["train"] + report["generate"] + report["segments"]:
+        if r["arch"] in S.FLOOR_ARCHS:
+            assert r["floor"] is not None and r["floor"] > 0, r
+            assert r["floor"] <= r["limit"]
+        else:
+            assert r["floor"] is None
+        assert r["held_by"] == "PERF.md §2"
+    assert report["floor_seeds"] == list(S.FLOOR_SEEDS)
+
+
+@pytest.mark.parametrize("fault", list(S.PLANTS))
+def test_planted_faults_miss_the_rows_limit(report, fault):
+    """rank 1's wkv state scaled by 1 + 1e-3, or its token-shift x_prev
+    zeroed, after the f32 rwkv6 generate's prefill: the run misses the
+    limit that holds the fault-free row."""
+    (r,) = [r for r in report["planted"] if r["fault"] == fault]
+    row = _row(report["generate"], "rwkv6-7b", "float32")
+    assert r["caught"] and r["limit"] == row["limit"] < r["logit_err"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segmented_prefill_matches_one_device(report, dtype):
+    """The prompt in four prefill calls on one cache (the later three
+    through the cache attention path, each rank on its T-slice): every
+    call's and decode step's logits within the LM limits, f32 tokens
+    equal, the cache's placements checked after each call."""
+    r = _row(report["segments"], "smollm-360m", dtype)
+    assert r["segments"] == 4
+    assert r["logit_err"] <= S.LOGIT_TOL[getattr(torch, dtype)], r
+    assert len(r["logit_err_steps"]) == r["new"] + 3
+    assert r["placement_checks"] == r["new"] + 5
+    assert r["tokens_equal"] or dtype == "bfloat16"
+    assert r["cache_slots"][1] * 2 == r["cache_slots"][0]
 
 
 def test_mesh_only_step_holds_the_plans_bytes(report):
