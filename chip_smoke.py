@@ -9,8 +9,8 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    attention) from ``src/repro_torch/kernels/*/csrc`` with nvcc (one
    process per source, started together); print registers, spills and
    shared memory of the SDCA kernel, the CUDA-core and tensor-core flash
-   kernels, the split and merge decode kernels and the cache attention
-   kernel and its merge;
+   kernels, the split and merge decode kernels and the CUDA-core and
+   tensor-core cache attention kernels and their merge;
 3. hold each kernel against its plain PyTorch version on the card: SDCA at
    the MOCHA main path's shapes (Vehicle Sensor: gram mode; Human
    Activity: carry mode), forced modes both ways, budgets that end
@@ -35,8 +35,10 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    it holds) at SmolLM-360M's 256-token segment over 1,064 slots (with
    and without a window), zamba2-7b's 64 tokens over 328 slots at head_dim
    112 (split over the slots), a mixtral-like window of 4,096, a ragged
-   case and one query at head_dim 256, f32 and bf16, row 0 of each all
-   masked (the mean of V), and its ``return_lse`` against the plain
+   case and one query at head_dim 256, f32 and bf16 (bf16 at head_dim 64,
+   112, 128, 256 on the tensor cores, within ``cache_tolerance``), row 0
+   of each all masked (the mean of V), and its ``return_lse`` against the
+   plain
    version's (-inf on the all-masked rows, the output unchanged bit for
    bit);
 4. the MOCHA main path: full-size experiments through
@@ -167,7 +169,8 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    head_dim 112 (kernel, plain version,
    ``scaled_dot_product_attention``) beside their bounds, with each
    kernel's design and share of the bound; cache attention at the
-   segments' shapes beside SDPA with the boolean mask; prefill ms and
+   segments' shapes (SmolLM-360M, zamba2-7b, mixtral-8x7b) beside SDPA
+   with the boolean mask (built outside the timed call); prefill ms and
    decode ms per token of both routes; profile a prefill and decode steps in f32 and
    bf16, each attention kernel's device time per call beside its bound;
 10. profile two warm blocks of the cohort path at K 256 on each engine
@@ -396,19 +399,19 @@ def phase_build():
             continue
         for kind in ("flash_kernel", "flash_wgmma_kernel",
                      "decode_split_kernel", "decode_merge_kernel",
-                     "cache_attention_kernel", "cache_merge_kernel"):
+                     "cache_attention_kernel", "cache_wgmma_kernel",
+                     "cache_merge_kernel"):
             if kind not in fn:
                 continue
             d = int(fn.split(kind)[1].split("Li")[1].split("E")[0])
-            dt = 1 if "bfloat16" in fn or kind == "flash_wgmma_kernel" else 0
+            dt = 1 if "bfloat16" in fn or "wgmma" in kind else 0
             if kind.startswith("flash"):
                 smem = flash.flash_attention_shared_bytes(d, dt)
             elif kind == "decode_split_kernel":   # the main path's G, chunk
                 smem = decode.decode_attention_shared_bytes(3, d, 128, dt)
-            elif kind == "cache_attention_kernel":
-                from repro_torch.kernels.cache_attention.cache_attention \
-                    import shared_bytes
-                smem = shared_bytes(d)
+            elif kind in ("cache_attention_kernel", "cache_wgmma_kernel"):
+                from repro_torch.kernels.cache_attention import shared_bytes
+                smem = shared_bytes(d, (torch.float32, torch.bfloat16)[dt])
             else:
                 smem = 0
             print(f"ptxas [{kind} {'bf16' if dt else 'f32'} D{d}]: "
@@ -1889,19 +1892,24 @@ def _route(name):
 
 
 def _tolerance(name, case, plain):
+    from repro_torch.kernels.cache_attention import cache_tolerance
     from repro_torch.kernels.flash_attention import (attention_tolerance,
                                                      flash_tolerance)
     if name == "flash":
         return flash_tolerance(case["q"], case["k"], case["v"], plain,
                                causal=case["causal"], window=case["window"])
+    if name == "cache":
+        return cache_tolerance(case["q"], case["k"], case["v"],
+                               case["q_pos"], case["k_pos"], plain,
+                               case["window"])
     return attention_tolerance(plain)
 
 
-def _rule(name, dtype):
+def _rule(name, dtype, d):
     rule = "2e-5 x max(1, max|plain|)"
     if dtype == torch.bfloat16:
         rule = "1e-2 x |plain| + " + rule
-        if name == "flash":
+        if design(name, dtype, d) == "wgmma+tma":
             rule += " + 2^-7 x attn(|v|)"
     return rule
 
@@ -1916,10 +1924,11 @@ def check_attention(name, label, case, plain=None):
     err = float(diff.max())
     share = float((diff / _tolerance(name, case, ref)).max())
     ok = out.dtype == ref.dtype and share <= 1.0
-    kind = design(name, case["q"].dtype, case["q"].shape[-1])
+    d = case["q"].shape[-1]
+    kind = design(name, case["q"].dtype, d)
     print(f"{name} kernel ({kind}) vs plain [{label}]: max_abs_err="
           f"{err:.3e}, largest "
-          f"share of the tolerance {_rule(name, ref.dtype)}: {share:.3f} "
+          f"share of the tolerance {_rule(name, ref.dtype, d)}: {share:.3f} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"{name} kernel disagrees with plain version: "
@@ -2053,7 +2062,7 @@ def phase_attention_kernels():
     errs[("decode_lse", f32)] = check_decode_lse()
     # cache attention at the segments' shapes: SmolLM-360M's 256-token
     # segment over its 1,064-slot cache (no split), zamba2-7b's 64 tokens
-    # over 328 slots at head_dim 112 (a 3-way split), mixtral-8x7b's
+    # over 328 slots at head_dim 112 (split over the slots), mixtral-8x7b's
     # window; row 0 all masked in each
     for dt in (f32, bf16):
         n = str(dt)[6:]
@@ -2338,21 +2347,23 @@ def shape_bound(name, dtype, b, s, h, hkv, d, live=None):
 
 
 def design(name, dtype, d=64):
-    """The kernel a call launches (decode and cache attention have one
-    design each)."""
+    """The kernel a call launches (decode attention has one design)."""
+    from repro_torch.kernels.cache_attention import design as cache_design
     from repro_torch.kernels.flash_attention import design as flash_design
     if name == "cache":
-        return "cuda-core tiles"
+        return cache_design(dtype, d)
     return flash_design(dtype, d) if name == "flash" else "split+merge"
 
 
-def _sdpa(name, case):
+def _sdpa(name, case, mask=None):
+    """SDPA on the case (cache: with ``mask`` where given, else with the
+    boolean mask built inside the call)."""
     import torch.nn.functional as F
     q, k, v = (case[x].transpose(1, 2) for x in ("q", "k", "v"))
     if name == "cache":
-        from repro_torch.kernels.cache_attention import cache_mask
-        mask = cache_mask(case["q_pos"], case["k_pos"], case["window"])
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None],
+        if mask is None:
+            mask = _sdpa_mask(case)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                               enable_gqa=True)
     if name == "flash":
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -2364,10 +2375,16 @@ def _sdpa(name, case):
                                           enable_gqa=True)
 
 
+def _sdpa_mask(case):
+    """The cache case's boolean mask as SDPA takes it, (B, 1, S, T)."""
+    from repro_torch.kernels.cache_attention import cache_mask
+    return cache_mask(case["q_pos"], case["k_pos"], case["window"])[:, None]
+
+
 #: the attention kernels as the profiler names them
 _PROFILE_KERNELS = {"flash": ("flash_wgmma_kernel", "flash_kernel"),
                     "decode": ("decode_split_kernel", "decode_merge_kernel"),
-                    "cache": ("cache_attention_kernel",
+                    "cache": ("cache_attention_kernel", "cache_wgmma_kernel",
                               "cache_merge_kernel")}
 
 
@@ -2526,59 +2543,86 @@ def phase_attention_timing(errs):
 
 
 #: the shapes the cache attention kernel is timed at: (label, B, S, T, H,
-#: Hkv, D, copies cycled through, repeats of kernel and SDPA in turns):
-#: SmolLM-360M's later prompt segments (256 tokens over the 1,064-slot
-#: cache of phase_cache_segments) and zamba2-7b's 64-token continuation
+#: Hkv, D, window, copies cycled through, repeats of kernel and SDPA in
+#: turns): SmolLM-360M's later prompt segments (256 tokens over the
+#: 1,064-slot cache of phase_cache_segments), zamba2-7b's 64-token
+#: continuation and mixtral-8x7b's 256 tokens into its wrapped 4,096-slot
+#: ring (phase_cache_segments (b))
 CACHE_TIMING = {
     "smollm": ("SmolLM-360M segment, one layer", BATCH, 256, MAX_LEN, 15, 5,
-               64, 4, 1),
+               64, None, 4, 1),
     "zamba2": ("zamba2-7b shared attention segment", 2, 64, 328, 32, 32,
-               112, 8, 5)}
+               112, None, 8, 5),
+    "mixtral": ("mixtral-8x7b segment into the wrapped ring", 1, 256, 4096,
+                32, 8, 128, 4096, 3, 1)}
 
 
 def phase_cache_timing(errs):
     """The cache attention kernel at CACHE_TIMING's shapes (``cache_case``:
     row 0 all masked), f32 and bf16: kernel, plain version and SDPA with
     the boolean mask per call by CUDA events (the median of the repeats,
-    kernel and SDPA in turns), the profiler's device time, and the bound
-    (``cache_bound``).  Rows keyed (dtype,) for SmolLM, (dtype, "zamba2")
-    for zamba2."""
+    kernel and SDPA in turns; the mask built once a case, outside the
+    timed call, and SDPA with the mask built inside the call, as the
+    column was first timed, once beside it), the host's enqueue time, the
+    profiler's device time, and the bound (``cache_bound``).  Rows keyed
+    (dtype,) for SmolLM, (dtype, shape) for the others."""
     rows = {}
-    for shape, (label, bb, ss, tt, hh, hkv, dd, n_copies,
+    for shape, (label, bb, ss, tt, hh, hkv, dd, window, n_copies,
                 repeats) in CACHE_TIMING.items():
         for dtype in (torch.float32, torch.bfloat16):
             name_dt = str(dtype)[6:]
-            cases = [cache_case(bb, ss, tt, hh, hkv, dd, dtype, seed=10 * i)
-                     for i in range(n_copies)]
+            cases = [cache_case(bb, ss, tt, hh, hkv, dd, dtype, window,
+                                seed=10 * i) for i in range(n_copies)]
+            masked = [(c, _sdpa_mask(c)) for c in cases]
             kernel = lambda c: _attn_kernel("cache", c)  # noqa: E731
-            sdpa = lambda c: _sdpa("cache", c)  # noqa: E731
+            sdpa = lambda cm: _sdpa("cache", *cm)  # noqa: E731
             (ms, ms_reads), (lib_ms, lib_reads) = _median_of_turns(
                 (lambda: _rotating_ms(kernel, cases, 50),
-                 lambda: _rotating_ms(sdpa, cases, 50)), repeats)
+                 lambda: _rotating_ms(sdpa, masked, 50)), repeats)
+            lib_inside_ms = _rotating_ms(lambda c: _sdpa("cache", c), cases,
+                                         50)
             plain_ms = _rotating_ms(lambda c: _attn_plain("cache", c),
                                     cases, 5)
+            host_ms = _host_ms(kernel, cases, 50)
             device_ms = _device_ms_per_call(kernel, cases, 50,
                                             _PROFILE_KERNELS["cache"])
             b = cache_bound(cases[0])
-            row = dict(design=design("cache", dtype), ms=ms,
+            row = dict(design=design("cache", dtype, dd), ms=ms,
                        ms_reads=ms_reads, library_ms_reads=lib_reads,
                        plain_ms=plain_ms, library_ms=lib_ms,
-                       device_ms=device_ms,
+                       library_mask_inside_ms=lib_inside_ms,
+                       host_ms=host_ms, device_ms=device_ms,
                        max_abs_err=errs[("cache", dtype)],
                        share_of_bound=b["bound_ms"] / ms,
                        device_share_of_bound=b["bound_ms"] / device_ms, **b)
             rows[(name_dt,) if shape == "smollm" else (name_dt, shape)] = row
             print(f"timing [cache {name_dt} ({row['design']}), {label}, B"
-                  f"{bb} S{ss} T{tt} H{hh}/{hkv} D{dd}]: kernel {ms:.4f} "
+                  f"{bb} S{ss} T{tt} H{hh}/{hkv} D{dd}"
+                  f"{f' window {window}' if window else ''}, chunk "
+                  f"{_cache_chunk(cases[0])}]: kernel {ms:.4f} "
                   f"ms/call{_spread(ms_reads)}, plain {plain_ms:.4f} ms, "
-                  f"SDPA with the mask {lib_ms:.4f} ms{_spread(lib_reads)}, "
+                  f"SDPA with the mask {lib_ms:.4f} ms{_spread(lib_reads)} "
+                  f"(the mask built inside the call: {lib_inside_ms:.4f} "
+                  f"ms), "
                   f"bound {b['bound_ms']:.5f} ms ({b['bound_by']}; "
                   f"{b['bytes'] / 1e6:.2f} MB, {b['flops'] / 1e9:.3f} "
                   f"GFLOP), kernel at {100 * row['share_of_bound']:.1f}% of "
                   f"the bound; device time {device_ms:.4f} ms/call "
                   f"({100 * row['device_share_of_bound']:.1f}% of the "
-                  f"bound) [{card_line()}]", flush=True)
+                  f"bound), host enqueue {host_ms:.4f} ms/call "
+                  f"[{card_line()}]", flush=True)
     return rows
+
+
+def _cache_chunk(case):
+    """The slots a block of the cache kernel takes on this case
+    (``split_plan``)."""
+    from repro_torch.kernels.cache_attention import split_plan
+    b, s, h, d = case["q"].shape
+    t, hkv = case["k"].shape[1:3]
+    return split_plan(b, s, h, hkv, t, d, case["q"].dtype,
+                      torch.cuda.get_device_properties(DEV)
+                      .multi_processor_count)
 
 
 def _serve_times(model, tokens, dtype):
@@ -2997,10 +3041,11 @@ def held_decode_calls(tally, label):
 @contextlib.contextmanager
 def held_cache_calls(tally, label):
     """Every cache_mha call of the model's layers held against
-    ``cache_attention_ref`` on its inputs within ``attention_tolerance``;
-    ``tally`` as in ``held_flash_calls``."""
-    from repro_torch.kernels.cache_attention import cache_attention_ref
-    from repro_torch.kernels.flash_attention import attention_tolerance
+    ``cache_attention_ref`` on its inputs within ``cache_tolerance`` (the
+    bf16 tensor-core design's P rounding included); ``tally`` as in
+    ``held_flash_calls``."""
+    from repro_torch.kernels.cache_attention import (cache_attention_ref,
+                                                     cache_tolerance)
     from repro_torch.models import layers
     saved = layers.cache_mha
 
@@ -3010,7 +3055,7 @@ def held_cache_calls(tally, label):
             ref = cache_attention_ref(q, k, v, q_pos, k_pos, window=window)
             got = out[0] if return_lse else out
             _hold_call(tally, label, "cache", got, ref,
-                       attention_tolerance(ref))
+                       cache_tolerance(q, k, v, q_pos, k_pos, ref, window))
         return out
 
     layers.cache_mha = cache
@@ -3855,7 +3900,7 @@ def phase_cache_segments():
     wall = time.perf_counter() - t0
     print(f"cache segments: {launches} cache_attention launches, each call "
           f"held against its plain version ({held['calls']} calls, largest "
-          f"share of attention_tolerance {held['share']:.3f}); phase "
+          f"share of cache_tolerance {held['share']:.3f}); phase "
           f"{wall:.1f} s (budget {SEG_BUDGET_S:.0f} s) [{card_line()}]",
           flush=True)
     if held["calls"] != launches or launches == 0:
@@ -4562,8 +4607,9 @@ def main() -> int:
         bound_by=f32["bound_by"], library_ms=f32["library_ms"],
         lse_max_share=attn_errs[("cache_lse", torch.float32)],
         shapes={"float32": f32, "bfloat16": bf16,
-                "zamba2_float32": cache_rows[("float32", "zamba2")],
-                "zamba2_bfloat16": cache_rows[("bfloat16", "zamba2")]}))
+                **{f"{shape}_{dt}": cache_rows[(dt, shape)]
+                   for shape in ("zamba2", "mixtral")
+                   for dt in ("float32", "bfloat16")}}))
     print(json.dumps({"serve_ms": serve}))
     print(json.dumps({"eval_path": eval_path}))
     print(json.dumps({"cohort_path": cohort}))

@@ -3,7 +3,9 @@
 Every source (``<kernel>/csrc/<kernel>.cu``) has a plain C interface, so it
 compiles in seconds into a shared library without PyTorch's headers; the
 Hopper helpers they share (mbarriers, TMA, wgmma) are in
-``include/hopper.cuh``.  Nothing links ``libcuda``: the one driver-API call,
+``include/hopper.cuh``, and what the flash and cache attention kernels
+share in ``include/attention.cuh``.  Nothing links ``libcuda``: the one
+driver-API call,
 ``cuTensorMapEncodeTiled``, is looked up through the CUDA runtime.  The
 libraries go into ``build/`` beside this module (listed in ``.gitignore``)
 at first use, each named after a hash of its source, the shared headers

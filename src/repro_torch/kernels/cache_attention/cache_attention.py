@@ -9,34 +9,60 @@ through this one.  q (B, S, H, D) and the cache k, v (B, T, Hkv, D) are
 read in place, with q_pos (B, S) and k_pos (B, T).
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs the plain version (``ref.cache_attention_ref``).  A call adds one
-to ``COUNTS["cache_attention"]``; it launches the kernel, and where
-``split_plan`` cuts the slots into chunks, a merge.  With ``return_lse`` it
-also returns each row's log-sum-exp, so that calls over disjoint slices of
-one cache merge exactly (``decode_attention.merge_weights``).
+it runs the plain version (``ref.cache_attention_ref``).  bf16 at head_dim
+64, 112, 128 and 256 runs on the tensor cores (wgmma fed by TMA), f32, and
+bf16 at head_dim 32, on the CUDA cores (``design``), as flash attention
+chooses.  A call adds one to ``COUNTS["cache_attention"]``; it launches the
+kernel, and where ``split_plan`` cuts the slots into chunks, a merge.  With
+``return_lse`` it also returns each row's log-sum-exp, so that calls over
+disjoint slices of one cache merge exactly
+(``decode_attention.merge_weights``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels.build import check_operand, load
 from repro_torch.kernels.cache_attention.ref import cache_attention_ref
-from repro_torch.kernels.flash_attention.flash_attention import (DTYPES,
-                                                                  HEAD_DIMS)
+from repro_torch.kernels.flash_attention.flash_attention import (
+    DTYPES, HEAD_DIMS, WGMMA_HEAD_DIMS)
 
 #: launches of the kernel since the last ``reset_counts``
 COUNTS = {"cache_attention": 0}
 _ERR_SHARED_MEMORY = -2
-#: rows (query, head) a block, and cache slots a tile; a chunk is a multiple
-#: of the tile
-ROWS, KEYS = 32, 32
-#: blocks per SM the split aims for
-BLOCKS_PER_SM = 2
 #: SM count of each device index, read once
 _SMS = {}
+
+
+class Tiles(NamedTuple):
+    """A design's grid at one (dtype, head_dim), as the source builds it:
+    rows a block, cache slots a tile (a chunk is a multiple of it), blocks
+    an SM, and whether a block's rows are (query, head) pairs of one kv
+    head's group (else queries of one query head)."""
+    rows: int
+    keys: int
+    blocks_per_sm: int
+    grouped: bool
+
+
+def design(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel a call of this dtype and head_dim launches."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma+tma"
+    return "cuda-core"
+
+
+def tiles(dtype: torch.dtype, d: int) -> Tiles:
+    """The grid of ``design(dtype, d)`` (the source's ``TcShape<D>`` and
+    ``CcShape<T, D>``)."""
+    if design(dtype, d) == "wgmma+tma":
+        return Tiles(128, 128 if d in (112, 128) else 64, 1, False)
+    return Tiles(128 if d <= 32 else 32 if d == 112 else 64,
+                 64 if d <= 128 else 32, 2 if d in (64, 112) else 1, True)
 
 
 def reset_counts() -> None:
@@ -48,25 +74,54 @@ def _bind(lib) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.cache_attention_fwd.argtypes = [P] * 8 + [I] * 10 + [P]
     lib.cache_attention_fwd.restype = I
+    lib.cache_attention_shared_bytes.argtypes = [I, I]
+    lib.cache_attention_shared_bytes.restype = ctypes.c_longlong
 
 
-def split_plan(b: int, s: int, h: int, hkv: int, t: int,
-               sms: int = 132) -> int:
-    """Cache slots a block takes: all T where the grid of b * hkv *
-    ceil(s * h / hkv / ROWS) blocks gives every one of ``sms`` SMs
-    ``BLOCKS_PER_SM`` blocks, else chunks (multiples of ``KEYS``) that do.
-    Depends on shapes only."""
-    blocks = max(1, b * hkv * -(-s * (h // max(1, hkv)) // ROWS))
-    splits = min(-(-BLOCKS_PER_SM * sms // blocks), -(-t // KEYS))
-    return KEYS * -(-t // (KEYS * max(1, splits)))
+@functools.lru_cache(maxsize=None)
+def split_plan(b: int, s: int, h: int, hkv: int, t: int, d: int,
+               dtype: torch.dtype, sms: int = 132) -> int:
+    """Cache slots a block takes, a multiple of the design's slot tile:
+    the chunk whose grid finishes first in a model of whole waves,
+    ceil(blocks x splits / (blocks an SM x sms)) waves of chunk / tile
+    tiles each; a tie goes to fewer splits (each costs a merge).  Splits
+    are tried only while the grid has under two waves.  Depends on shapes
+    only."""
+    tl = tiles(dtype, d)
+    g = h // max(1, hkv)
+    blocks = max(1, b * (hkv * -(-s * g // tl.rows) if tl.grouped
+                         else h * -(-s // tl.rows)))
+    n_tiles = -(-t // tl.keys)
+    slots = tl.blocks_per_sm * sms
+    best = None
+    for n in range(1, max(1, min(n_tiles, -(-2 * slots // blocks))) + 1):
+        per = -(-n_tiles // n)                  # tiles a chunk
+        waves = -(-blocks * -(-n_tiles // per) // slots)
+        if best is None or waves * per < best[0]:
+            best = (waves * per, per)
+    return tl.keys * best[1]
 
 
-def shared_bytes(d: int) -> int:
-    """Dynamic shared memory a block asks for at head_dim ``d`` (the
-    source's ``Shape<D>::BYTES``): f32 Q, K (rows padded by 4), V and P
-    tiles, and the tiles' positions."""
-    return 4 * (ROWS * d + KEYS * (d + 4) + KEYS * d + ROWS * KEYS + ROWS
-                + KEYS)
+def shared_bytes(d: int, dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory a block of ``design(dtype, d)`` asks for (the
+    source's ``cache_attention_shared_bytes``).  wgmma: the Q tile and a
+    ring of K and V stages in 128-byte swizzle atoms with each tile's k_pos
+    and their range, the mbarriers and 1,024 bytes of alignment slack;
+    CUDA cores: Q^T in f32, two K stages (rows padded by 16 bytes but at
+    112), one V stage (two, and a P tile, but at 64 and 112) and two k_pos
+    stages."""
+    tl = tiles(dtype, d)
+    if design(dtype, d) == "wgmma+tma":
+        atoms = -(-d // 64)
+        stages = 3 if atoms <= 2 else 2
+        return (1024 + atoms * tl.rows * 128 + 2 * stages * atoms * tl.keys
+                * 128 + stages * 4 * (tl.keys + 4) + 8 * (1 + 3 * stages))
+    es = 4 if dtype == torch.float32 else 2
+    lean = d in (64, 112)
+    ldk = d if d == 112 else d + 16 // es
+    return (4 * d * tl.rows + 2 * es * tl.keys * ldk
+            + (1 if lean else 2) * es * tl.keys * d
+            + (0 if lean else 4 * tl.rows * (tl.keys + 4)) + 8 * tl.keys)
 
 
 def _sm_count(dev: torch.device) -> int:
@@ -117,7 +172,7 @@ def cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = (torch.empty((b, s, h), dtype=torch.float32, device=dev)
            if return_lse else None)
-    chunk = split_plan(b, s, h, hkv, t, _sm_count(dev))
+    chunk = split_plan(b, s, h, hkv, t, d, q.dtype, _sm_count(dev))
     n_split = -(-t // chunk)
     partials = (torch.empty(b * s * h * n_split * (d + 2),
                             dtype=torch.float32, device=dev)

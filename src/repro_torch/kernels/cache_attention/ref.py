@@ -5,6 +5,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention.flash_attention import (
+    WGMMA_HEAD_DIMS)
+from repro_torch.kernels.flash_attention.ref import attention_tolerance
+
 #: a masked slot's score: the JAX package's finite ``NEG_INF``
 #: (``repro/models/layers.py``), so that a query with no live slot gets
 #: the mean of V over every slot, as there
@@ -49,3 +53,20 @@ def cache_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores.masked_fill_(~mask, NEG_INF), dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs, vf).to(q.dtype)
     return (out, lse) if return_lse else out
+
+
+def cache_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, k_pos: torch.Tensor,
+                    plain: torch.Tensor,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """The largest |kernel - plain| allowed for each element of the cache
+    kernel's output on these inputs (``plain``: the plain version's):
+    ``attention_tolerance``, and where the bf16 tensor-core design runs
+    (head_dim 64, 112, 128, 256), which rounds P to bf16 before P V as the
+    flash kernel does, its ``P_ROUNDING`` term on attn(|v|) taken by the
+    plain version in f32.  Returns f32 of ``plain``'s shape."""
+    abs_attn = None
+    if plain.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS:
+        abs_attn = cache_attention_ref(q.float(), k.float(), v.float().abs(),
+                                       q_pos, k_pos, window=window)
+    return attention_tolerance(plain, abs_attn)

@@ -126,59 +126,17 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "attention.cuh"
 #include "hopper.cuh"
 
 namespace {
+
+using namespace attn;
 
 constexpr float kNegInf = -1.0e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 // returned by the entry point for a head_dim or dtype it was not built for
 constexpr int kErrUnsupported = -1;
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// N consecutive elements (N = 1, 2 or 4, N-element aligned) as f32
-template <int N, typename T>
-__device__ __forceinline__ void load_vec(const T* p, float* out) {
-  if constexpr (N == 1) {
-    if constexpr (sizeof(T) == 4) out[0] = *p;
-    else out[0] = __bfloat162float(*p);
-  } else if constexpr (N == 4) {
-    const float4 x = load4(p);
-    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-  } else if constexpr (sizeof(T) == 4) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    out[0] = x.x; out[1] = x.y;
-  } else {
-    const float2 x =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    out[0] = x.x; out[1] = x.y;
-  }
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// 2^x by the special function unit (2 ulp; 2^-inf = +0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // ---------------------------------------------------------------------------
 // f32 (and bf16 at head_dim 32) on the CUDA cores: register-tiled products
@@ -515,11 +473,6 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
 // bf16 on the tensor cores: wgmma fed by TMA through an mbarrier ring
 // ---------------------------------------------------------------------------
 
-constexpr int kTcRows = 128;                  // query rows per block
-constexpr int kTcConsumers = 256;             // two consumer warpgroups
-constexpr int kTcThreads = kTcConsumers + 32; // and one producer warp
-constexpr int kAtomBytes = 128;               // a swizzle atom's row: 64 bf16
-
 // Tiles of the tensor-core kernel at head_dim D, whose rows are DT columns
 // wide in shared memory: D rounded up to whole 64-column swizzle atoms (128 at
 // head_dim 112, the last 16 columns zero-filled by TMA past the tensor).
@@ -539,56 +492,6 @@ struct TcShape {
                               BAR_BYTES;
   static_assert(D % 16 == 0, "whole k16 steps of the scores");
 };
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-// S = Q K^T of a warpgroup's 64 rows over a tile's BK keys, in blocks of
-// 64 keys, both operands K-major in shared memory; D / 16 k16 steps (7 at
-// head_dim 112: the eighth would multiply the zero padding)
-template <int D>
-__device__ __forceinline__ void issue_scores(float (&sc)[TcShape<D>::BK / 64]
-                                                      [32],
-                                             const uint8_t* Qw,
-                                             const uint8_t* Kst) {
-  using C = TcShape<D>;
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int n = 0; n < C::BK / 64; ++n)
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int a = kk / 4, off = (kk % 4) * 32;
-      hopper::wgmma_m64n64k16_ss(
-          sc[n], hopper::desc_sw128(Qw + a * C::Q_ATOM + off, 16, 1024),
-          hopper::desc_sw128(Kst + a * C::KV_ATOM + n * 64 * kAtomBytes + off,
-                             16, 1024),
-          kk > 0);
-    }
-  hopper::wgmma_commit();
-}
-
-// O += P V: P from registers, V MN-major in shared memory (16 keys per
-// step, one 64-column atom per product; at head_dim 112 the second atom's
-// last 16 columns are zeros and their sums are not stored)
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[TcShape<D>::ATOMS][32],
-                                         const uint32_t (&pa)[TcShape<D>::BK /
-                                                              16][4],
-                                         const uint8_t* Vst) {
-  using C = TcShape<D>;
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < C::BK / 16; ++j)
-#pragma unroll
-    for (int n = 0; n < C::ATOMS; ++n)
-      hopper::wgmma_m64n64k16_rs_tb(
-          acc[n], pa[j],
-          hopper::desc_sw128(Vst + n * C::KV_ATOM + j * 16 * kAtomBytes, 1024,
-                             1024));
-  hopper::wgmma_commit();
-}
 
 // Online softmax of one tile's scores, in the accumulator fragment: thread
 // t holds rows r_lo and r_lo + 8, columns 8 i + cq + {0, 1} of each
@@ -741,7 +644,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int i = 0; i < n_kv; ++i) {
       const int s = i % ST, ph = (i / ST) & 1;
       hopper::mbar_wait(&full_k[s], ph);
-      issue_scores<D>(sc, Qw, Ks + s * C::KV_BYTES);
+      wgmma_scores<D, BK>(sc, Qw, Ks + s * C::KV_BYTES);
       hopper::wgmma_wait();
 #pragma unroll
       for (int n = 0; n < NB; ++n)
@@ -754,7 +657,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int r = 0; r < 32; ++r) acc[n][r] *= alpha[(r >> 1) & 1];
       hopper::mbar_wait(&full_v[s], ph);
-      issue_pv<D>(acc, pa, Vs + s * C::KV_BYTES);
+      wgmma_pv<D, BK>(acc, pa, Vs + s * C::KV_BYTES);
       hopper::wgmma_wait();
 #pragma unroll
       for (int n = 0; n < NO; ++n)

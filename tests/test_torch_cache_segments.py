@@ -280,10 +280,17 @@ def test_slices_merged_by_lse_give_the_whole_cache(n):
 
 
 def test_split_plan_fills_the_sms_and_splits_only_short_grids():
-    assert CA.split_plan(8, 256, 15, 5, 1064) == 1088         # 960 blocks
-    chunk = CA.split_plan(2, 64, 32, 32, 320)                 # 128 blocks
-    assert chunk % 32 == 0 and -(-320 // chunk) == 3
-    assert CA.split_plan(1, 1, 8, 8, 33) == 32                # capped by T
+    f32, bf16 = torch.float32, torch.bfloat16
+    # SmolLM's segment: 480 CUDA-core blocks / 240 wgmma blocks, no split
+    assert CA.split_plan(8, 256, 15, 5, 1064, 64, f32) == 1088
+    assert CA.split_plan(8, 256, 15, 5, 1064, 64, bf16) == 1088
+    # zamba2's: 128 / 64 blocks, two chunks of 3 x 64 / 2 x 128 slots
+    assert CA.split_plan(2, 64, 32, 32, 328, 112, f32) == 192
+    assert CA.split_plan(2, 64, 32, 32, 328, 112, bf16) == 256
+    # mixtral's ring: 128 f32 blocks, one a SM, no split; 64 wgmma, two
+    assert CA.split_plan(1, 256, 32, 8, 4096, 128, f32) == 4096
+    assert CA.split_plan(1, 256, 32, 8, 4096, 128, bf16) == 2048
+    assert CA.split_plan(1, 1, 8, 8, 33, 64, f32) == 64       # capped by T
 
 
 def test_cpu_wrapper_refuses_a_non_positive_window():

@@ -7,6 +7,7 @@ which imports JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 import contextlib
+import importlib
 
 import numpy as np
 import pytest
@@ -17,6 +18,11 @@ from repro_torch.kernels import cache_attention as CA
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import sdca as K
+
+#: the cache kernel's wrapper module (the package's ``cache_attention`` is
+#: the function)
+CK = importlib.import_module("repro_torch.kernels.cache_attention."
+                             "cache_attention")
 
 
 def _card():
@@ -536,7 +542,8 @@ def _cache_case(b, s, t, h, hkv, d, dev, dtype, seed=0):
 def test_cache_kernel_matches_plain_version(d, dtype, window):
     """Every head_dim and dtype, with and without a window, GQA, a ragged
     S and T, a split over T (B 1, one kv head: few blocks) and not (B 4),
-    row 0 all masked (the mean of V over every slot)."""
+    row 0 all masked (the mean of V over every slot); within
+    ``cache_tolerance`` (the bf16 tensor-core design's P rounding)."""
     dev = _card()
     for b, s, t, h, hkv in ((4, 70, 333, 6, 2), (2, 3, 500, 4, 1)):
         q, k, v, qp, kp = _cache_case(b, s, t, h, hkv, d, dev, dtype)
@@ -545,7 +552,7 @@ def test_cache_kernel_matches_plain_version(d, dtype, window):
         torch.cuda.synchronize()
         assert CA.COUNTS["cache_attention"] == 1
         want = CA.cache_attention_ref(q, k, v, qp, kp, window)
-        _close(out, want)
+        _close(out, want, CA.cache_tolerance(q, k, v, qp, kp, want, window))
         mean = v[0].float().mean(0).repeat_interleave(h // hkv, 0)
         _close(out[0], mean.expand(s, h, d).to(dtype))
 
@@ -595,13 +602,16 @@ def test_cache_kernel_slices_merge_into_the_whole_cache():
 @pytest.mark.cuda
 def test_a_planted_wrong_mask_fails_the_plain_version(tmp_path,
                                                       monkeypatch):
-    """The kernel built from its source with the causal test ``k_pos <=
-    q_pos`` planted as ``<`` (each query loses its own slot) must miss
-    the plain version's tolerance: the comparison sees the mask."""
+    """The kernel built from its source with the causal test ``kpos <=
+    qpos`` (``live_slot``, which both designs call) planted as ``<`` (each
+    query loses its own slot) must miss the plain version's tolerance in
+    f32 (the CUDA-core design) and in bf16 (the tensor-core design): the
+    comparison sees each design's mask.  Each query's own slot holds 4 x
+    its q, so it carries most of the softmax and the plant moves the
+    output by about |v|."""
     import ctypes
     from pathlib import Path
     from repro_torch.kernels import build
-    from repro_torch.kernels.cache_attention import cache_attention as CK
     dev = _card()
     src = Path(build.SOURCES["cache_attention"]).read_text()
     assert src.count("kpos <= qpos") == 1
@@ -609,15 +619,126 @@ def test_a_planted_wrong_mask_fails_the_plain_version(tmp_path,
     planted.write_text(src.replace("kpos <= qpos", "kpos < qpos"))
     lib = ctypes.CDLL(str(build.build([planted])[planted]))
     CK._bind(lib)
-    q, k, v, qp, kp = _cache_case(2, 40, 200, 4, 2, 64, dev, torch.float32)
-    kp[:, :40] = qp                   # each query's own position is cached
-    want = CA.cache_attention_ref(q, k, v, qp, kp)
-    _close(CA.cache_attention(q, k, v, qp, kp), want)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, qp, kp = _cache_case(2, 40, 200, 4, 4, 64, dev, dtype)
+        kp[:, :40] = qp               # each query's own position is cached
+        k[:, :40] = 4.0 * q
+        want = CA.cache_attention_ref(q, k, v, qp, kp)
+        tol = CA.cache_tolerance(q, k, v, qp, kp, want)
+        _close(CA.cache_attention(q, k, v, qp, kp), want, tol)
+        cases.append((q, k, v, qp, kp, want, tol))
     monkeypatch.setattr(CK, "load", lambda name, bind: lib)
-    got = CA.cache_attention(q, k, v, qp, kp)
+    for q, k, v, qp, kp, want, tol in cases:
+        assert CA.design(q.dtype, 64) == ("cuda-core" if q.dtype ==
+                                          torch.float32 else "wgmma+tma")
+        got = CA.cache_attention(q, k, v, qp, kp)
+        torch.cuda.synchronize()
+        with pytest.raises(AssertionError):
+            _close(got, want, tol)
+
+
+def _positions(kind, b, s, t, dev):
+    """q_pos (B, S) and k_pos (B, T) int32 of a real cache.  "monotone": a
+    cache written from slot 0, slot t holding position t, its last T / 16
+    slots not written (-1), the segment the newest S positions (its own
+    slots written first, as ``Model.prefill`` does); "ring": a window's
+    ring of T slots after 2.5 T positions, slot t holding the newest
+    position = t mod T, the segment the newest S.  Row 0's queries lie
+    before every position (all masked)."""
+    if kind == "monotone":
+        n = t - t // 16
+        k_pos = np.where(np.arange(t) < n, np.arange(t), -1)
+    else:
+        n = 5 * t // 2
+        k_pos = n - 1 - (n - 1 - np.arange(t)) % t
+    k_pos = np.broadcast_to(k_pos, (b, t)).copy()
+    q_pos = np.broadcast_to(n - s + np.arange(s), (b, s)).copy()
+    q_pos[0] = np.arange(s) - s - 1
+    return [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (q_pos, k_pos)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 112, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 3, 4])
+def test_cache_kernel_designs_over_groups_splits_and_positions(
+        d, dtype, g, monkeypatch):
+    """Both designs (``CA.design``) at G = H / Hkv of 1 to 4, S 70 (no
+    multiple of any query tile) over T 333 (no multiple of any slot tile),
+    with and without a window; the slots as one chunk (no split), as one
+    slot tile a chunk (the most splits) and as ``split_plan`` cuts them;
+    positions as ``_cache_case`` shuffles them, a monotone cache and a
+    wrapped ring.  Each within ``cache_tolerance``; row 0 (no live slot)
+    the mean of V over every slot; one launch a call."""
+    dev = _card()
+    b, s, t, hkv = 2, 70, 333, 2
+    h = g * hkv
+    q, k, v, qp0, kp0 = _cache_case(b, s, t, h, hkv, d, dev, dtype)
+    keys = CK.tiles(dtype, d).keys
+    plan = CK.split_plan
+    mean = v[0].float().mean(0).repeat_interleave(g, 0).expand(s, h, d)
+    for chunking, chunk in (("whole", -(-t // keys) * keys), ("tile", keys),
+                            ("plan", None)):
+        monkeypatch.setattr(CK, "split_plan", plan if chunk is None else
+                            lambda *a, chunk=chunk, **kw: chunk)
+        for kind in ("shuffle", "monotone", "ring"):
+            qp, kp = ((qp0, kp0) if kind == "shuffle"
+                      else _positions(kind, b, s, t, dev))
+            for window in (None, 40):
+                CA.reset_counts()
+                out = CA.cache_mha(q, k, v, qp, kp, window)
+                torch.cuda.synchronize()
+                assert CA.COUNTS["cache_attention"] == 1
+                want = CA.cache_attention_ref(q, k, v, qp, kp, window)
+                label = (chunking, kind, window)
+                try:
+                    _close(out, want, CA.cache_tolerance(q, k, v, qp, kp,
+                                                         want, window))
+                    _close(out[0], mean.to(dtype))
+                except AssertionError as err:
+                    raise AssertionError(f"{label}: {err}") from None
+
+
+@pytest.mark.cuda
+def test_cache_shared_bytes_match_the_source():
+    """``shared_bytes`` (what the CPU tests hold under the card's 232,448
+    bytes) is what the source's instances ask for."""
+    from repro_torch.kernels import build
+    _card()
+    lib = build.load("cache_attention", CK._bind)
+    for dtype, code in CK.DTYPES.items():
+        for d in CK.HEAD_DIMS:
+            assert lib.cache_attention_shared_bytes(d, code) == \
+                CK.shared_bytes(d, dtype), (dtype, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 112])
+def test_cache_kernel_halves_merge_in_both_designs(d, dtype):
+    """The mesh's merge on one card, in both designs: the cache in two
+    T-halves, each read with ``return_lse`` and merged by
+    ``merge_weights`` with the halves' slots, against the plain version
+    over the whole cache within ``cache_tolerance`` plus the rounding of
+    each half's output to its dtype before the merge (eps / 2 of the
+    weighted halves' magnitudes), the all-masked row (the mean over both
+    halves) included."""
+    dev = _card()
+    q, k, v, qp, kp = _cache_case(3, 40, 512, 8, 2, d, dev, dtype)
+    halves = [CA.cache_mha(q, k[:, i:i + 256].contiguous(),
+                           v[:, i:i + 256].contiguous(), qp,
+                           kp[:, i:i + 256].contiguous(), return_lse=True)
+              for i in (0, 256)]
+    outs = torch.stack([o for o, _ in halves]).float()
+    w = DA.merge_weights(torch.stack([lse for _, lse in halves]),
+                         torch.tensor([256, 256]))[..., None]
+    got = (w * outs).sum(0).to(dtype)
     torch.cuda.synchronize()
-    with pytest.raises(AssertionError):
-        _close(got, want)
+    want = CA.cache_attention_ref(q, k, v, qp, kp)
+    rounding = torch.finfo(dtype).eps / 2 * (w * outs.abs()).sum(0)
+    _close(got, want, CA.cache_tolerance(q, k, v, qp, kp, want) + rounding)
 
 
 @pytest.mark.cuda
