@@ -93,7 +93,12 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    short generate (4 of 32 layers) on a 1 x 1 mesh over the one NCCL
    rank, without ``gloo_collectives``, held against one device under the
    mesh-step limits, flash and decode launched, under 30 s (a 1 x 1 mesh
-   carries no real collective: the wiring only);
+   carries no real collective: the wiring only); then the port's
+   examples (``phase_examples``): ``repro_torch.examples.quickstart`` at
+   full size on the card, its report against a CPU run of the same
+   example (rtol 1e-5 / atol 1e-4), and ``mocha_federated``'s engines
+   section at its 40 rounds, local / kernel / sharded each within its
+   printed limit, one SDCA launch a round of the kernel engine;
 7. the LM main path: SmolLM-360M at full width (random weights from seed
    0) through ``repro_torch.serve.Engine.generate``, batch 8, prompt 1024,
    32 new tokens, in f32 and bf16, through the kernels (counters set to 0
@@ -567,6 +572,65 @@ def phase_main_path():
                           wall_ms=[1e3 * wall_k / ROUNDS,
                                    1e3 * wall_l / ROUNDS])
     return out
+
+
+def phase_examples():
+    """The port's examples on the card: the quickstart at full size, its
+    report held against a CPU run of the same example on one intra-op
+    thread (OBJ_TOL), and
+    ``mocha_federated``'s engines section, each engine within its printed
+    limit of the local engine, the kernel engine through the SDCA kernel
+    (one launch a round, counters set to 0 just before and read just
+    after)."""
+    import torch.distributed as dist
+    from repro_torch.examples import mocha_federated as mf
+    from repro_torch.examples.quickstart import main as quickstart
+    t0 = time.perf_counter()
+    card_rep = quickstart([])
+    card_s = time.perf_counter() - t0
+    # one intra-op thread: the CPU's bits move with the thread count
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t0 = time.perf_counter()
+        cpu_rep = quickstart(["--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    if card_rep.provenance["device"] != "cuda":
+        raise AssertionError(f"quickstart ran on "
+                             f"{card_rep.provenance['device']}")
+    errs = {key: _close(f"quickstart {key}", card_rep.final(key),
+                        cpu_rep.final(key), OBJ_TOL)
+            for key in ("gap", "primal", "dual")}
+    errs["mean_error"] = _close(
+        "quickstart mean_error", card_rep.evaluation.summary["mean_error"],
+        cpu_rep.evaluation.summary["mean_error"], OBJ_TOL)
+    print(f"examples: quickstart on the card {card_s:.2f} s, on the CPU "
+          f"{cpu_s:.2f} s; card vs CPU max |diff| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+    train, test, reg = mf.federation("cuda")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    runs, ok = mf.engines(train, test, reg, "cuda")
+    torch.cuda.synchronize()
+    engines_s = time.perf_counter() - t0
+    launches = read_counts()["sdca_local_solve"]
+    if not ok:
+        raise AssertionError("mocha_federated: an engine missed its limit")
+    if launches != mf.ENGINE_ROUNDS:
+        raise AssertionError(f"mocha_federated: the kernel ran {launches} "
+                             f"times in {mf.ENGINE_ROUNDS} rounds")
+    # the one-rank group the sharded engine made; phase_dryrun_costs holds
+    # that no group is left in this process
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    print(f"examples: mocha_federated engines section "
+          f"({mf.ENGINE_ROUNDS} rounds, local / kernel / sharded) "
+          f"{engines_s:.2f} s, {launches} SDCA launches", flush=True)
+    return dict(quickstart_s=[card_s, cpu_s], quickstart_err=errs,
+                engines_s=engines_s, launches=launches,
+                primal={k: r.final("primal") for k, r in runs.items()})
 
 
 def phase_small_reference():
@@ -4504,6 +4568,7 @@ def main() -> int:
     cohort = phase_cohort_path()
     serve_tier = phase_serve_tier()
     sharded = phase_sharded_path()
+    examples = phase_examples()
     phase_small_reference()
     lm = phase_lm_main_path()
     phase_lm_small_reference()
@@ -4533,7 +4598,8 @@ def main() -> int:
     sdca_paths = {"mocha_main": launches, "eval_kernel_grids": eval_launches,
                   "cohort": cohort["launches"],
                   "serve": serve_tier["launches"],
-                  "personalize": pers["counts"]["sdca_local_solve"]}
+                  "personalize": pers["counts"]["sdca_local_solve"],
+                  "examples": examples["launches"]}
     flash_paths = {"lm_generate": sum(lm[dt]["counts"]["flash_attention"]
                                       for dt in ("float32", "bfloat16")),
                    "personalize": pers["counts"]["flash_attention"],
@@ -4615,6 +4681,7 @@ def main() -> int:
     print(json.dumps({"cohort_path": cohort}))
     print(json.dumps({"serve_tier": serve_tier}))
     print(json.dumps({"sharded_path": sharded}))
+    print(json.dumps({"examples": examples}))
     print(json.dumps({"personalize": pers}))
     print(json.dumps({"train": train}))
     print(json.dumps({"remat": remat}))

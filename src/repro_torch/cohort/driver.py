@@ -240,6 +240,9 @@ class _SolvedBlock:
     #: committed; only populated when checkpointing is active (the fold
     #: stage keeps the latest one as the frontier clock for snapshots)
     clock: Optional[dict] = None
+    #: host seconds of the CUDA graph this block's solve captured (the
+    #: run's first solve on the card); None where it captured none
+    capture_s: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -334,6 +337,9 @@ class _BlockLoop:
         self.seen = np.zeros(m, bool)  # owner: main
         self.n_seen = 0  # owner: main
         self.participation = np.zeros(m, np.int64)  # owner: main
+        #: host seconds of each CUDA graph captured, as the solved blocks
+        #: hand them over
+        self.graph_captures: List[float] = []  # owner: main
 
         # -- resilience: fault plan, retry budget, checkpoint/resume --------
         if cfg.max_retries < 0:
@@ -436,7 +442,8 @@ class _BlockLoop:
             # history column (which subsamples to record rounds only)
             max_steps=int(budgets.max()),
             dual=res.final("dual"), primal=res.final("primal"),
-            gap=res.final("gap"), elapsed_s=self.trace.elapsed_s)
+            gap=res.final("gap"), elapsed_s=self.trace.elapsed_s,
+            capture_s=res.capture_s)
 
     def pack_block(self, b: int) -> _PackedBlock:  # worker: pack
         """PACK STAGE wrapper: fault injection + retry for block b.
@@ -585,6 +592,8 @@ class _BlockLoop:
                 self.tel.counter("retries").inc(s.retries + s.pack_retries)
             self.tel.counter("blocks_folded").inc()
             self.participation[ids[s.participated]] += 1
+            if s.capture_s is not None:
+                self.graph_captures.append(s.capture_s)
             self.merger.fold(b, ids, s.W, s.alpha, sizes, s.participated)
             new = ids[s.participated & ~self.seen[ids]]
             self.seen[new] = True
@@ -618,9 +627,7 @@ class _BlockLoop:
             self._ckpt.save(self, self.merger.merged_through)
 
     def result(self) -> CohortRunResult:  # worker: main
-        # solve-owned, but both pools have joined before result()
-        graphs = [p.capture_s for p in self._programs.values()  # reprolint: ok T301
-                  if p.graph is not None]
+        graphs = self.graph_captures
         return CohortRunResult(
             relationship=self.state, history=self.history,
             trace=self.trace,  # reprolint: ok T301

@@ -39,60 +39,6 @@ import torch
 from repro_torch.core.regularizers import Regularizer
 from repro_torch.utils.device import resolve_device
 
-#: empty cache slots sort past every real client id (ids are int32-ranged:
-#: populations are bounded by the (m,) assignment vector)
-SENTINEL = np.iinfo(np.int32).max
-
-
-def check_ids(ids, m: int) -> np.ndarray:
-    """``ids`` as int64, raising unless every id is in ``[0, m)``."""
-    ids = np.asarray(ids, np.int64)
-    if ids.size and (ids.min() < 0 or ids.max() >= m):
-        raise ValueError(
-            f"client ids must be in [0, {m}); got range "
-            f"[{ids.min()}, {ids.max()}]")
-    return ids
-
-
-def sorted_cache(cids, cdelta, capacity: int, d: int
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """The cache's (ids, deltas) sorted by id into ``capacity`` slots:
-    ``(capacity,)`` int32 ids padded with ``SENTINEL`` and ``(capacity,
-    d)`` float32 deltas, zeros for the padding."""
-    ids = np.full(capacity, SENTINEL, np.int32)
-    delta = np.zeros((capacity, d), np.float32)
-    n = int(np.size(cids))
-    if n:
-        order = np.argsort(np.asarray(cids, np.int64), kind="stable")
-        ids[:n] = np.asarray(cids, np.int64)[order]
-        delta[:n] = np.asarray(cdelta, np.float32)[order]
-    return ids, delta
-
-
-def resolve_weights(centroids: np.ndarray, assign: np.ndarray,
-                    cache_ids: np.ndarray, cache_delta: np.ndarray,
-                    ids: np.ndarray) -> np.ndarray:
-    """(B, d) served weights -- the ONE resolution rule.
-
-    ``W[b] = centroids[assign[ids[b]]]``, plus the cached personal delta
-    for clients present in ``cache_ids`` (sorted, ``SENTINEL``-padded).
-    Never-trained / evicted clients get the bare centroid -- the
-    deterministic cold-start answer.  Pure float32 gather + add, so the
-    result is bit-identical to a per-slot loop over the cache.  Shared by
-    ``ClusterOmega.client_weights``, the held-out evaluation
-    (``core/evaluate.py``) and the serve tier's snapshots and device lookup
-    (``serve/store.py``, ``serve/predict.py``).
-    """
-    ids = np.asarray(ids, np.int64)
-    W = np.asarray(centroids, np.float32)[np.asarray(assign)[ids]].copy()
-    if cache_ids.size:
-        pos = np.minimum(np.searchsorted(cache_ids, ids), cache_ids.size - 1)
-        hit = cache_ids[pos] == ids
-        if hit.any():
-            W[hit] += np.asarray(cache_delta, np.float32)[pos[hit]]
-    return W
-
-
 class ClusterOmega:
     """Factored relationship + model state for an m-client population.
 
@@ -174,7 +120,11 @@ class ClusterOmega:
         cluster centroid, the cold-start answer cross-device systems need.
         ``resolve_weights`` on the live state and the sorted cache: the
         rule the serve tier's snapshots apply, so the bits are the same.
+        The rule lives in ``repro_torch.serve.store``, one source of truth
+        with the online prediction tier.
         """
+        from repro_torch.serve.store import (  # runtime-lazy: serve sits
+            check_ids, resolve_weights, sorted_cache)  # ABOVE cohort
         ids = check_ids(ids, self.m)
         cids, cdelta = self.cache_entries()
         cache_ids, cache_delta = sorted_cache(cids, cdelta, cids.size,

@@ -163,7 +163,7 @@ def evaluate_cohort(pop, relationship, loss: Loss, n_clients: int,
     online tier would answer: ``relationship.client_weights`` applies the
     resolution rule (cluster centroid plus cached personal delta, the bare
     centroid for a cold client) that the serve tier's snapshots apply,
-    ``repro_torch.cohort.omega.resolve_weights`` -- and aggregates by
+    ``repro_torch.serve.store.resolve_weights`` -- and aggregates by
     learned cluster assignment.
     """
     metrics = _check_metrics(metrics)

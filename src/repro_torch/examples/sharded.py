@@ -17,19 +17,20 @@ import argparse
 import json
 import math
 import os
-import time
 
 import numpy as np
+
+from repro_torch.utils.timing import tick
 
 
 def _timed(fn, dev):
     import torch
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
-    t0 = time.perf_counter()
+    t0 = tick()
     out = fn()
     sync()
-    return out, time.perf_counter() - t0
+    return out, tick() - t0
 
 
 def _spec(name):

@@ -50,11 +50,12 @@ import contextlib
 import dataclasses
 import json
 import os
-import time
 from datetime import timedelta
 
 import numpy as np
 import torch
+
+from repro_torch.utils.timing import tick
 
 F32, BF16 = torch.float32, torch.bfloat16
 #: a train step's sequence length, the steps of a train run, and the
@@ -423,12 +424,12 @@ def mesh_train_run(cfg, dtype, b, dev, mesh=None, dm=None, ref=None, *,
         counted = (dtensor_collectives() if i == 0 and dm is not None
                    else contextlib.nullcontext((None, None)))
         _sync(dev)
-        t0 = time.perf_counter()
+        t0 = tick()
         with activation_sharding(mesh, axes, dm), counted as (mode, _), \
                 _routing(cfg, dtype, routes, calls, dm, axes, tally):
             params, opt, metrics = step(params, opt, batch)
             _sync(dev)
-        out["wall_s"].append(time.perf_counter() - t0)
+        out["wall_s"].append(tick() - t0)
         out["ce"].append(float(metrics["ce"]))
         out["grad_norm"].append(float(metrics["grad_norm"]))
         if mode is not None:
@@ -520,7 +521,7 @@ def mesh_generate_run(cfg, b, prompt, dtype, dev, fed=None, mesh=None,
     placed("before prefill")
     _reset_peak(dev)
     _sync(dev)
-    t0 = time.perf_counter()
+    t0 = tick()
     with activation_sharding(mesh, axes, dm):
         with _routing(cfg, dtype, routes, iter(ref or ()), dm, axes, tally):
             for j, part in enumerate(parts):
@@ -541,7 +542,7 @@ def mesh_generate_run(cfg, b, prompt, dtype, dev, fed=None, mesh=None,
                 sent.append(tok.cpu().numpy())
                 out, cache = decode(params, tok, cache)
             _sync(dev)
-            wall = time.perf_counter() - t0
+            wall = tick() - t0
         if dm is not None:
             held = {t.to_local().untyped_storage().data_ptr()
                     for _, t, _ in leaves()}
@@ -800,7 +801,7 @@ def run_all(args, dev):
     trains, gens, segs, alone = _runs(args)
     plants = [(i, fault) for i, (name, _, _, _, dt) in enumerate(gens)
               if name in FLOOR_ARCHS and dt == F32 for fault in PLANTS]
-    t0 = time.perf_counter()
+    t0 = tick()
     ones = replay = floors = None
     if rank == 0:
         ones = dict(train=[mesh_train_run(c, dt, b, dev, mesh, seq=seq)
@@ -820,11 +821,11 @@ def run_all(args, dev):
     box = [replay]
     dist.broadcast_object_list(box, src=0, device=torch.device("cpu"))
     replay = box[0]
-    one_s = time.perf_counter() - t0
+    one_s = tick() - t0
     FA.reset_counts()
     DA.reset_counts()
     CA.reset_counts()
-    t1 = time.perf_counter()
+    t1 = tick()
     with collectives_for(dev):
         mtrain = [mesh_train_run(c, dt, b, dev, mesh, dm, replay["train"][i],
                                  seq=seq)
@@ -843,7 +844,7 @@ def run_all(args, dev):
                                     gens[i][4], dev, replay["gen"][i][0],
                                     mesh, dm, new=new, plant=PLANTS[fault])
                   for i, fault in plants]
-    mesh_s = time.perf_counter() - t1
+    mesh_s = tick() - t1
     mine = dict(launches=launches,
                 routing=[r.get("routing") for r in mtrain + mgen],
                 alone=[dict(ce=r["ce"], peak_gib=r["peak_gib"],

@@ -31,12 +31,12 @@ import argparse
 import contextlib
 import dataclasses
 import json
-import time
 
 import numpy as np
 import torch
 
 from repro_torch.examples import sharded_lm as S
+from repro_torch.utils.timing import tick
 
 #: the arch whose errors at depth exceed ``sharded_lm``'s limits
 ARCH = "rwkv6-7b"
@@ -159,7 +159,7 @@ def probe(args, dev):
         return S.mesh_generate_run(c, GEN_B, prompt, dt, dev, fed, mesh, dm_,
                                    new=new)
 
-    t0 = time.perf_counter()
+    t0 = tick()
     ones = floors = fed = None
     if dist.get_rank() == 0:
         ones = dict(train=[train(c) for c in trains],
@@ -175,13 +175,13 @@ def probe(args, dev):
     box = [fed]
     dist.broadcast_object_list(box, src=0, device=torch.device("cpu"))
     fed = box[0]
-    one_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
+    one_s = tick() - t0
+    t1 = tick()
     with S.collectives_for(dev):
         mtrain = [train(c, dm) for c in trains]
         mgen = [generate(c, dt, fed[i], dm)
                 for i, (c, dt) in enumerate(gens)]
-    mesh_s = time.perf_counter() - t1
+    mesh_s = tick() - t1
     if dist.get_rank() != 0:
         return None
     report = dict(arch=base.name, ranks=dist.get_world_size(),

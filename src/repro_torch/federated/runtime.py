@@ -24,6 +24,7 @@ by rank 0 alone (``utils.dist.writes_files``).
 """
 from __future__ import annotations
 
+import atexit
 import os
 from datetime import timedelta
 from typing import Optional, Tuple
@@ -62,7 +63,9 @@ def init_default_group(timeout: timedelta = TIMEOUT) -> None:
     (``torchrun`` sets WORLD_SIZE; each rank has chosen its card), else
     one rank on a ``HashStore``.  Both carry CPU tensors through gloo and,
     where there is a card, CUDA tensors through NCCL; a rank waits
-    ``timeout`` in a collective for the others."""
+    ``timeout`` in a collective for the others.  The one-rank group is
+    this module's own, so it is destroyed at exit; a launcher's group
+    stays its caller's to destroy."""
     backend = ("cpu:gloo,cuda:nccl" if torch.cuda.is_available()
                else "gloo")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
@@ -70,6 +73,14 @@ def init_default_group(timeout: timedelta = TIMEOUT) -> None:
     else:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1, timeout=timeout)
+        atexit.register(_destroy_own_group, dist.group.WORLD)
+
+
+def _destroy_own_group(group) -> None:
+    """Destroy ``group`` at exit if it is still the default group: a caller
+    that destroyed it first, or replaced it, keeps what it did."""
+    if dist.is_initialized() and dist.group.WORLD is group:
+        dist.destroy_process_group()
 
 
 def make_federated_mesh(n_shards: Optional[int] = None, device=None):

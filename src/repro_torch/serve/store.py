@@ -12,14 +12,21 @@ serving contract is instead snapshot-and-swap:
     its shapes as the cache fills);
   * ``resolve_weights`` is THE served-weight resolution rule -- cluster
     centroid plus cached personal delta, bare centroid for never-trained
-    clients.  It lives beside the state it reads (``cohort/omega.py``) and
-    is shared by ``ClusterOmega.client_weights``, the held-out evaluation
-    (``core/evaluate.py``), the snapshots here and the device lookup
-    (``serve/predict.py``), so no caller reconstructs it inline;
+    clients -- shared by ``ClusterOmega.client_weights``, the held-out
+    evaluation (``core/evaluate.py``), the snapshots here and the device
+    lookup (``serve/predict.py``), so no caller reconstructs it inline;
   * ``SnapshotStore`` hands snapshots from the publisher (the training fold
     thread, ownership role ``main``) to readers (role ``serve``) by
     swapping one reference -- a single GIL-atomic store, so readers never
     lock against training and never observe a half-built snapshot.
+
+The thread-ownership contract (reprolint T301/T302) extends to the
+``serve`` role here: the store's mutable reference is ``# owner: main``
+and the one sanctioned cross-owner read (``current``) is explicitly
+suppressed with its safety argument.  Serve code never imports the mutable
+``ClusterOmega`` (reprolint D107): training state arrives only as a
+``ServedSnapshot``, and ``ClusterOmega.client_weights`` imports the rule
+from here at run time.
 
 Host numpy arrays, as in the JAX package: the snapshot is built on the fold
 thread, which never touches the card.
@@ -27,14 +34,65 @@ thread, which never touches the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
 from repro_torch import obs
-from repro_torch.cohort.omega import (SENTINEL, check_ids, resolve_weights,
-                                      sorted_cache)
 from repro_torch.utils.timing import tick
+
+#: empty cache slots sort past every real client id (ids are int32-ranged:
+#: populations are bounded by the (m,) assignment vector)
+SENTINEL = np.iinfo(np.int32).max
+
+
+def check_ids(ids, m: int) -> np.ndarray:
+    """``ids`` as int64, raising unless every id is in ``[0, m)``."""
+    ids = np.asarray(ids, np.int64)
+    if ids.size and (ids.min() < 0 or ids.max() >= m):
+        raise ValueError(
+            f"client ids must be in [0, {m}); got range "
+            f"[{ids.min()}, {ids.max()}]")
+    return ids
+
+
+def sorted_cache(cids, cdelta, capacity: int, d: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """The cache's (ids, deltas) sorted by id into ``capacity`` slots:
+    ``(capacity,)`` int32 ids padded with ``SENTINEL`` and ``(capacity,
+    d)`` float32 deltas, zeros for the padding."""
+    ids = np.full(capacity, SENTINEL, np.int32)
+    delta = np.zeros((capacity, d), np.float32)
+    n = int(np.size(cids))
+    if n:
+        order = np.argsort(np.asarray(cids, np.int64), kind="stable")
+        ids[:n] = np.asarray(cids, np.int64)[order]
+        delta[:n] = np.asarray(cdelta, np.float32)[order]
+    return ids, delta
+
+
+def resolve_weights(centroids: np.ndarray, assign: np.ndarray,
+                    cache_ids: np.ndarray, cache_delta: np.ndarray,
+                    ids: np.ndarray) -> np.ndarray:
+    """(B, d) served weights -- the ONE resolution rule.
+
+    ``W[b] = centroids[assign[ids[b]]]``, plus the cached personal delta
+    for clients present in ``cache_ids`` (sorted, ``SENTINEL``-padded).
+    Never-trained / evicted clients get the bare centroid -- the
+    deterministic cold-start answer.  Pure float32 gather + add, so the
+    result is bit-identical to a per-slot loop over the cache.  Shared by
+    ``ClusterOmega.client_weights``, the held-out evaluation
+    (``core/evaluate.py``) and the serve tier's snapshots and device lookup
+    (this module, ``serve/predict.py``).
+    """
+    ids = np.asarray(ids, np.int64)
+    W = np.asarray(centroids, np.float32)[np.asarray(assign)[ids]].copy()
+    if cache_ids.size:
+        pos = np.minimum(np.searchsorted(cache_ids, ids), cache_ids.size - 1)
+        hit = cache_ids[pos] == ids
+        if hit.any():
+            W[hit] += np.asarray(cache_delta, np.float32)[pos[hit]]
+    return W
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,7 +204,7 @@ class SnapshotStore:
     def current(self) -> ServedSnapshot:  # worker: serve
         """The latest published snapshot (any reader thread): a
         cross-owner read of one reference whose target is immutable."""
-        snap = self._current
+        snap = self._current  # reprolint: ok T301 (atomic immutable-ref read)
         if snap is None:
             raise RuntimeError(
                 "no ServedSnapshot published yet (publish one, or let the "

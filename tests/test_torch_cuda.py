@@ -1377,3 +1377,17 @@ def test_bf16_wire_on_the_card():
     for k in ("dual", "primal", "gap"):
         np.testing.assert_allclose(card.history[k], cpu.history[k],
                                    rtol=1e-5, atol=1e-4, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_the_ports_one_rank_group_ends_at_exit_on_the_card():
+    """A one-rank ``engine="sharded"`` run on the card (its group carries
+    NCCL) exits 0 with the group ended: no group at exit, and no warning
+    that ``destroy_process_group()`` was not called."""
+    from test_torch_examples import run_group_exit
+    _card()
+    out = run_group_exit("cuda", "keep", card=True)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1] == "initialized at exit: False"
+    assert "destroy_process_group() was not called" not in out.stderr
+    assert "Traceback" not in out.stderr

@@ -33,7 +33,8 @@ for sub in ("configs.smollm_360m", "models.layers", "models.transformer",
             "core.personalization", "data.tokens", "train.losses",
             "train.optimizer", "train.loop", "launch.train",
             "examples.personalize", "examples.serve_cohort",
-            "examples.train_lm", "examples.sharded", "federated",
+            "examples.train_lm", "examples.sharded", "examples.quickstart",
+            "examples.mocha_federated", "federated",
             "federated.runtime", "federated.sharding", "utils.dist",
             "configs.shapes", "launch.mesh", "launch.sharding",
             "launch.specs", "launch.roofline", "launch.dryrun",
@@ -66,7 +67,8 @@ def test_chip_smoke_imports_no_jax():
 
 @pytest.mark.parametrize("entry", ["federation", "experiment", "convert",
                                    "model", "serve", "serve_session",
-                                   "predictor", "personalize", "train"])
+                                   "predictor", "personalize", "train",
+                                   "quickstart", "mocha_federated"])
 def test_default_device_is_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present; the default device is available")
@@ -75,7 +77,9 @@ def test_default_device_is_the_card(entry):
     from repro_torch.configs import get_config
     from repro_torch.convert import state_from_numpy
     from repro_torch.data.synthetic import tiny_problem
+    from repro_torch.examples.mocha_federated import main as mocha_main
     from repro_torch.examples.personalize import main as personalize_main
+    from repro_torch.examples.quickstart import main as quickstart_main
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.train import main as train_main
     from repro_torch.models import build_model
@@ -89,6 +93,10 @@ def test_default_device_is_the_card(entry):
             Predictor(SnapshotStore())
         elif entry == "personalize":
             personalize_main(["--tasks", "2", "--per-task", "4"])
+        elif entry == "quickstart":
+            quickstart_main([])
+        elif entry == "mocha_federated":
+            mocha_main([])
         elif entry == "train":
             train_main(["--arch", "smollm-360m", "--local", "--steps", "1"])
         elif entry == "federation":
