@@ -1,0 +1,10 @@
+"""Put the checkout's root (for ``bench``) and ``src`` (for the program)
+on the import path of the benchmark's tests."""
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+for path in (os.path.join(ROOT, "src"), ROOT):
+    if path not in sys.path:
+        sys.path.insert(0, path)
